@@ -1,0 +1,46 @@
+"""Strange-attractor renderer: the PyTorch/CUDA port of ``strange_attractor_tpu``.
+
+The flagship path runs on one NVIDIA Hopper card through two hand-written
+CUDA kernels (``csrc/``): a fused map+emit chunk kernel and the KERNEL-
+strategy bin. Every kernel has a plain PyTorch twin beside it; the wrappers
+run the twin for CPU tensors only. This package imports no JAX::
+
+    from strange_attractor_tpu_torch import colorize, presets, render
+
+    config = presets.poisson_saturne(iterations=100_000_000, seed=1)
+    state = render(config, device="cuda")   # accumulates; call again to refine
+    image = colorize(config, state)         # (H, W, 4) uint16 RGBA on the card
+"""
+
+from .config import BinStrategy, BrightnessConstants, Colors, Config, Palette, RenderKind, View
+from .models import presets
+from .models.attractors import PolynomialSprott2Degree
+from .models.transforms import AdjustedVelocity, poisson_saturne_transform
+from .ops.projection import EulerAxisRotation
+from .render import colorize, plan_schedule, render, render_seeds
+from .runtime import RenderState, load_state, merge, save_state
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AdjustedVelocity",
+    "BinStrategy",
+    "BrightnessConstants",
+    "Colors",
+    "Config",
+    "EulerAxisRotation",
+    "Palette",
+    "PolynomialSprott2Degree",
+    "RenderKind",
+    "RenderState",
+    "View",
+    "colorize",
+    "load_state",
+    "merge",
+    "plan_schedule",
+    "poisson_saturne_transform",
+    "presets",
+    "render",
+    "render_seeds",
+    "save_state",
+]

@@ -1,0 +1,132 @@
+"""Command-line interface of the PyTorch port: the single-frame path, with
+the JAX package's flag names (strange_attractor_tpu/cli.py:31-207) for what
+is ported.
+
+    python -m strange_attractor_tpu_torch -i 100000000 -8 -b -0.25 -o out/frame
+
+Path: render -> colorize -> convert on the device -> one host copy ->
+write. ``sequence``, ``completion``, ``doctor`` and ``--depth`` exit with a
+"not yet ported" error; the JAX package (``python -m strange_attractor_tpu``)
+has them.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+
+from .config import BrightnessConstants, Colors
+from .models import presets
+
+_NOT_PORTED = ("sequence", "completion", "doctor")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m strange_attractor_tpu_torch",
+        description="Strange-attractor renderer, PyTorch/CUDA port (single frames).",
+        add_help=False,
+    )
+    p.add_argument("--help", action="help", help="Print help")
+    p.add_argument("--depth", action="store_true", help="output depth information (not yet ported)")
+    p.add_argument("-8", "--8-bit", dest="eight_bit", action="store_true",
+                   help="Write image in an 8-bit format")
+    p.add_argument("-t", "--transparent", action="store_true",
+                   help="Add transparency to the image")
+    p.add_argument("-i", "--iterations", type=int, default=10_000_000,
+                   help="Number of iterations")
+    p.add_argument("-w", "--width", type=int, default=1920, help="Width of image")
+    p.add_argument("-h", "--height", type=int, default=1080, help="Height of image")
+    p.add_argument("-s", "--scale", type=float, default=None,
+                   help="Image zoom (default: the preset's own scale)")
+    p.add_argument("-p", "--preset", choices=list(presets.PRESET_NAMES),
+                   default="poisson-saturne", help="Which built-in attractor to render")
+    p.add_argument("--pam", "--pnm", "--pbm", dest="pam", action="store_true",
+                   help="Use PAM format. 16-bit images are not supported.")
+    p.add_argument("--bmp", "--bitmap", dest="bmp", action="store_true",
+                   help="Use BMP format. 16-bit images are not supported.")
+    p.add_argument("-o", "--file-name", dest="name", default="attractor",
+                   help="Write to file name")
+    p.add_argument("-q", "--silent", action="store_true", help="Decrease verbosity")
+    p.add_argument("-a", "--angle", type=float, default=0.0,
+                   help="Angle to view attractor from (degrees)")
+    p.add_argument("-b", "--brightness-offset", dest="brightness_offset", type=float,
+                   default=-0.15,
+                   help="Offset the brightness. You generally want to decrease this if "
+                        "you have > 1e8 iterations.")
+    p.add_argument("--lanes", type=int, default=None,
+                   help="Parallel trajectory lanes (default: auto from iterations)")
+    p.add_argument("--chunk-steps", type=int, default=None,
+                   help="Map steps per binning flush (default: auto)")
+    p.add_argument("--seed", type=int, default=None, help="Deterministic RNG seed")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default: cuda; 'cpu' runs the "
+                        "plain PyTorch twins of the kernels)")
+    p.add_argument("subcommand", nargs="?", choices=_NOT_PORTED, help=argparse.SUPPRESS)
+    p.add_argument("rest", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
+    # the "-8" short flag makes argparse refuse bare negative values like
+    # ``-b -0.25``; "-8" itself still wins by exact option match
+    p._has_negative_number_optionals.clear()  # noqa: SLF001
+    return p
+
+
+def _validate(args, parser):
+    if args.subcommand is not None:
+        parser.error(f"'{args.subcommand}' is not yet ported to the PyTorch package; "
+                     f"run it with python -m strange_attractor_tpu")
+    if args.depth:
+        parser.error("--depth is not yet ported to the PyTorch package; "
+                     "run it with python -m strange_attractor_tpu")
+    if (args.pam or args.bmp) and not args.eight_bit:
+        parser.error("--pam/--bmp require --8-bit (16-bit images are not supported)")
+    if args.pam and args.bmp:
+        parser.error("--pam conflicts with --bmp")
+
+
+def config_from_args(args):
+    """Build a Config from CLI flags over the preset (main.rs:417-442)."""
+    config = presets.by_name(args.preset)
+    config = config.replace(
+        iterations=args.iterations,
+        width=args.width,
+        height=args.height,
+        transparent=args.transparent,
+        silent=args.silent,
+        colors=Colors(palette=config.colors.palette,
+                      brightness=BrightnessConstants(offset=args.brightness_offset)),
+        angle=float(np.radians(args.angle)),
+        lanes=args.lanes,
+        chunk_steps=args.chunk_steps,
+        seed=args.seed,
+    )
+    if args.scale is not None:
+        config = config.replace(view=config.view.replace(scale=args.scale))
+    return config
+
+
+def _output_base(args) -> Path:
+    """Output path stem handling (main.rs:445-457)."""
+    path = Path(args.name)
+    return path.parent / path.stem if path.stem else path.parent / "attractor"
+
+
+def main(argv=None) -> int:
+    from .render import colorize, render
+    from .utils.export import convert_format_device, to_host, write_image
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    _validate(args, parser)
+    config = config_from_args(args)
+    fmt = "pam" if args.pam else "bmp" if args.bmp else "png"
+    state = render(config, device=args.device)
+    image = convert_format_device(colorize(config, state), args.transparent, args.eight_bit)
+    write_image(_output_base(args), to_host(image), fmt=fmt, transparent=args.transparent,
+                eight_bit=args.eight_bit, silent=config.silent)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

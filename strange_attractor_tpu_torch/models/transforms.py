@@ -1,0 +1,86 @@
+"""Color transforms (PyTorch port of ``strange_attractor_tpu.models.transforms``):
+map (delta, screen-space point, view) -> palette position
+(reference: src/lib.rs:498-559).
+
+Constants follow JAX's weak typing: each Python float, and each constant
+expression the JAX package writes such as ``0.46 - 1.0941``, is folded in
+float64 and rounded once to float32. The CUDA map+emit kernel writes the
+same values as ``(float)(0.46 - 1.0941)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops.projection import f32
+
+# cos/sin of 45.5 degrees = 91*pi/360 rad, the reference's constants
+# (src/lib.rs:524-536)
+_COS_45_5 = 0.7009092642998509
+_SIN_45_5 = 0.7132504491541816
+
+
+def sqrt_ieee(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on any device.
+
+    torch's CPU ``sqrt`` is not correctly rounded for float32 (it differs
+    from IEEE in about 0.6% of random inputs), while XLA's, numpy's and
+    CUDA's ``sqrtf`` are. The float64 root of a float32 value rounds to the
+    IEEE float32 root exactly, so this form agrees with all three."""
+    return torch.sqrt(x.double()).float()
+
+
+def div_ieee(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / f32(b)``, correctly rounded on every device.
+
+    torch's CUDA division by a host scalar multiplies by the scalar's
+    reciprocal instead, which can round differently; a divisor tensor on
+    ``a``'s device keeps the IEEE quotient that XLA and the CUDA kernel
+    compute."""
+    return a / torch.full((), f32(b), dtype=torch.float32, device=a.device)
+
+
+def _magnitude(dx, dy, dz):
+    return sqrt_ieee(dx * dx + dy * dy + dz * dz)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdjustedVelocity:
+    """``(|delta| + offset) * factor`` (reference: src/lib.rs:506-516)."""
+
+    offset: float
+    factor: float
+
+    def xyz(self, dx, dy, dz, sx, sy, sz, view):
+        return (_magnitude(dx, dy, dz) + f32(self.offset)) * f32(self.factor)
+
+
+@dataclasses.dataclass(frozen=True)
+class PoissonSaturneTransform:
+    """The poisson-saturne classifier transform (reference: src/lib.rs:520-558).
+
+    Classifies the screen-space point into one of two attractor "parts" via
+    four half-plane tests (src/lib.rs:542-551), keeping the reference's
+    quirk of adding ``center_camera.y`` to the z coordinate, then blends
+    the part index with |delta|: ``((part + |delta|) / 2 - 0.1) / 0.9``.
+    """
+
+    def xyz(self, dx, dy, dz, sx, sy, sz, view):
+        x2 = (sx + f32(view.center_camera[0])) * f32(_COS_45_5) + (
+            sz + f32(view.center_camera[1])
+        ) * f32(_SIN_45_5)
+        outside = (
+            (x2 < f32(-0.0839))
+            | (f32(10.55) * x2 + sy < f32(0.46 - 1.0941))
+            | (f32(1.0426) * x2 + sy < f32(0.179 - 0.1576))
+            | (f32(0.5139) * x2 - sy > f32(-0.04 - 0.04092))
+        )
+        part = torch.where(outside, 0.0, 1.0).to(torch.float32)
+        color = div_ieee(part + _magnitude(dx, dy, dz), 2.0)
+        return div_ieee(color - f32(0.1), 0.9)
+
+
+#: Singleton matching the reference's free function ``color_transforms::poisson_saturne``.
+poisson_saturne_transform = PoissonSaturneTransform()

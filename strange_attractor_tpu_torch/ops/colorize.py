@@ -1,0 +1,116 @@
+"""Tone mapping (PyTorch port of ``strange_attractor_tpu.ops.colorize``): the
+reference's ``colorize`` (src/lib.rs:841-904) as elementwise torch ops.
+
+Gas mode: palette-interpolate the stored color value, scale brightness by
+``log(count+1) / log(max+1)``, apply the brightness constants, and cast with
+Rust ``as u16`` saturation semantics. Plain torch: it is no Pallas kernel in
+the JAX package either. The Depth tone map is not ported yet.
+
+Rounding: every op is the JAX package's float32 op in the same order, with
+two functions taken correctly rounded on every device: the square root
+(:func:`models.transforms.sqrt_ieee`) and ``log1p``, computed in float64
+and rounded once. XLA's CPU ``log1p`` is faithful but not correctly rounded
+(one ulp off on about 0.8% of integer counts), so the brightness factor can
+sit one ulp from the JAX package's, which the tests bound.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import Config, RenderKind
+from ..models.transforms import sqrt_ieee
+from ..runtime import RenderState
+from .binning import u32, unpack_zv
+from .projection import f32
+
+
+def _saturate_u16(x: torch.Tensor) -> torch.Tensor:
+    """Rust ``<f32> as u16``: NaN -> 0, clamp [0, 65535], truncate."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=65535.0, neginf=0.0)
+    return torch.clamp(x, 0.0, 65535.0).to(torch.int32).to(torch.uint16)
+
+
+# beyond this stop count the select chain loses to one table gather
+PALETTE_SELECT_MAX_STOPS = 8
+
+
+def palette_lookup(stops: np.ndarray, value: torch.Tensor, *, gather: bool | None = None):
+    """Palette interpolation (src/lib.rs:442-472) over a float32 canvas.
+
+    ``stops`` is the (K+1, 3) host table (last stop duplicated). Up to
+    ``PALETTE_SELECT_MAX_STOPS`` stops the rows are picked by K selects,
+    past it by a table gather; both compute the same lerp from the same
+    rows, so they agree bit for bit. Returns (..., 3): the lerp between
+    neighboring stops, square-rooted per channel.
+    """
+    k = stops.shape[0] - 1
+    # only v >= 1.0 clamps (to 0.999999); [0.999999, 1.0) passes unchanged
+    v = torch.where(value >= 1.0, f32(0.999999), torch.clamp(value, min=0.0)) * float(k)
+    # f32 can round v up to exactly k within half an ulp of 1.0; clamp
+    n = torch.clamp(torch.floor(v).to(torch.int64), max=k - 1)
+    frac = torch.fmod(v, 1.0)
+    if gather is None:
+        gather = k > PALETTE_SELECT_MAX_STOPS
+    if gather:
+        tbl = torch.from_numpy(stops.astype(np.float32)).to(value.device)
+        lo, hi, fr = tbl[n], tbl[n + 1], frac[..., None]
+        return sqrt_ieee(hi * fr + lo * (1.0 - fr))
+    lo = [torch.zeros_like(v) for _ in range(3)]
+    hi = [torch.zeros_like(v) for _ in range(3)]
+    for idx in range(k):
+        sel = n == idx
+        for c in range(3):
+            lo[c] = torch.where(sel, f32(stops[idx][c]), lo[c])
+            hi[c] = torch.where(sel, f32(stops[idx + 1][c]), hi[c])
+    return torch.stack([sqrt_ieee(h * frac + lo_ * (1.0 - frac)) for lo_, h in zip(lo, hi)],
+                       dim=-1)
+
+
+def state_planes(state: RenderState):
+    """(count, steps, zbuf) planes regardless of storage strategy."""
+    if state.packed is not None:
+        zbuf, steps = unpack_zv(state.packed)
+        return state.count, steps, zbuf
+    return state.count, state.steps, state.zbuf
+
+
+def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    return torch.log1p(x.double()).float()
+
+
+def colorize_stats(config: Config, count, steps, zbuf):
+    """Gas mode's global reduction: the max count as float32 (the reference
+    tracks it as a running max, src/lib.rs:813-815)."""
+    del steps, zbuf
+    _check_gas(config, count)
+    return (u32(count).to(torch.float32).max(),)
+
+
+def _check_gas(config: Config, count) -> None:
+    if config.render != RenderKind.GAS:
+        raise NotImplementedError("the Depth tone map is not ported yet; use the "
+                                  "JAX package (strange_attractor_tpu) for --depth")
+    if count is None:
+        raise ValueError("this state carries no count plane and cannot be "
+                         "colorized as a Gas render")
+
+
+def colorize_planes(config: Config, count, steps, zbuf, stats=None):
+    """Tone-map planes to an (H, W, 4) uint16 RGBA tensor (Gas mode)."""
+    _check_gas(config, count)
+    bk = config.colors.brightness
+    rgb = palette_lookup(config.colors.palette.stops, steps)
+    cf = u32(count).to(torch.float32)
+    (maxc,) = stats if stats is not None else colorize_stats(config, count, steps, zbuf)
+    # log base (max+1) brightness (src/lib.rs:860); NaN when max == 0, which
+    # the saturating cast maps to 0 like the reference's empty render
+    factor = _log1p_f32(cf) / _log1p_f32(maxc)
+    channels = (rgb * factor[..., None] + f32(bk.offset)) * f32(bk.factor)
+    rgb16 = _saturate_u16(channels * 65535.0)
+    if config.transparent:
+        alpha = _saturate_u16(factor * 65535.0)
+    else:
+        alpha = torch.full(tuple(count.shape), 65535, dtype=torch.uint16, device=count.device)
+    return torch.cat([rgb16, alpha[..., None]], dim=-1)

@@ -1,0 +1,173 @@
+"""Fused map + emit: the lane recurrence that feeds the binning.
+
+Per map step and lane: Sprott step, view rotation, camera projection, color
+transform, bounds check and (z, value) packing -- the body of the JAX
+package's ``_step_fn`` + ``_finish_emit`` (strange_attractor_tpu/render.py:
+130-196), which XLA fused into one ``lax.scan`` program on the TPU.
+
+Two implementations with one contract:
+
+- :func:`map_emit_plain`, plain torch ops in a Python loop over steps (about
+  fifty small ops per step);
+- :func:`map_emit`, the wrapper of the CUDA kernel ``csrc/map_emit.cu``: one
+  thread per lane carries the point in registers through all steps. For a
+  CPU tensor it runs :func:`map_emit_plain`.
+
+Lane state is a (3, lanes) float32 tensor of the current points, updated in
+place. The JAX package also carries the previous point, but at every chunk
+boundary it equals the current one (the carry sets both to the new point,
+and a render starts with ``prev = cur``), so the delta of a step is simply
+``new - old``. The emitted streams are step-major, index ``s * lanes +
+lane`` -- JAX's ``emitted.reshape(-1)`` order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+
+from ..config import Config
+from ..models.attractors import PolynomialSprott2Degree
+from ..models.transforms import AdjustedVelocity, PoissonSaturneTransform
+from . import cuda_lib
+from .binning import pack_zv
+from .projection import CameraParams, camera_params, f32, project, rotate_xyz
+
+
+@dataclasses.dataclass(frozen=True)
+class EmitSpec:
+    """Everything one map+emit launch reads besides the lane state."""
+
+    attractor: PolynomialSprott2Degree
+    transform: object
+    view: object
+    cam: CameraParams  # carries the camera angle's cos/sin
+
+    @property
+    def npix(self) -> int:
+        return self.cam.width * self.cam.height
+
+
+def emit_spec(config: Config, angle: float) -> EmitSpec:
+    """The map+emit constants of ``config`` viewed at ``angle`` radians."""
+    cam = camera_params(config.view, angle, config.width, config.height)
+    return EmitSpec(config.attractor, config.color_transform, config.view, cam)
+
+
+def finish_emit(npix: int, width: int, height: int, fi, fj, z2, val):
+    """Bounds check + (z, value) packing of one point batch -> (flat, packed).
+
+    The reference skips a point iff i >= W or j >= H or i < 0 or j < 0
+    (src/lib.rs:789). NaN coordinates of escaped orbits fail all four tests,
+    pass, and bin at pixel (0, 0) through the saturating cast
+    (src/lib.rs:799-812). Only in-bounds, non-NaN coordinates reach the int
+    cast here, so the cast never sees inf or NaN. NaN z becomes -inf, which
+    never wins the z-test (src/lib.rs:821).
+    """
+    oob = (fi >= width) | (fj >= height) | (fi < 0.0) | (fj < 0.0)
+    inb = ~oob
+    ii = torch.where(inb & ~torch.isnan(fi), fi, 0.0).to(torch.int32)
+    jj = torch.where(inb & ~torch.isnan(fj), fj, 0.0).to(torch.int32)
+    flat = torch.where(inb, jj * width + ii, npix).to(torch.int32)
+    z2 = torch.where(torch.isnan(z2), -math.inf, z2)
+    return flat, pack_zv(z2, val)
+
+
+def map_emit_plain(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = True):
+    """Advance ``points`` (3, lanes) float32 by ``steps`` map steps, in place.
+
+    With ``emit`` returns the step-major ``(flat, packed)`` int32 streams of
+    ``steps * lanes`` points; without it (the warm-up) returns None.
+    """
+    cam = spec.cam
+    x, y, z = points[0], points[1], points[2]
+    flats, packs = [], []
+    for _ in range(steps):
+        nx, ny, nz = spec.attractor.step_xyz(x, y, z)
+        if emit:
+            sx, sy, sz = rotate_xyz(cam, nx, ny, nz)
+            fi, fj, z2 = project(cam, sx, sy, sz, cam.cos_angle, cam.sin_angle)
+            val = spec.transform.xyz(nx - x, ny - y, nz - z, sx, sy, sz, spec.view)
+            f, p = finish_emit(spec.npix, cam.width, cam.height, fi, fj, z2, val)
+            flats.append(f)
+            packs.append(p)
+        x, y, z = nx, ny, nz
+    points.copy_(torch.stack([x, y, z]))
+    if not emit:
+        return None
+    if not flats:
+        empty = torch.empty(0, dtype=torch.int32, device=points.device)
+        return empty, empty.clone()
+    return torch.cat(flats), torch.cat(packs)
+
+
+def _kernel_params(spec: EmitSpec) -> cuda_lib.EmitParams:
+    """Host-side float32 constants, each rounded once from float64 exactly
+    as the plain twin rounds them."""
+    if type(spec.attractor) is not PolynomialSprott2Degree:
+        raise NotImplementedError("the map+emit kernel runs PolynomialSprott2Degree only, "
+                                  f"got {type(spec.attractor).__name__}")
+    cam = spec.cam
+    p = cuda_lib.EmitParams()
+    p.coef[:] = [float(c) for c in spec.attractor.coefficients_f32().reshape(-1)]
+    p.rot[:] = [f32(v) for row in cam.rotation_matrix for v in row]
+    p.cos_v, p.sin_v = f32(cam.cos_angle), f32(cam.sin_angle)
+    p.ccx, p.ccy, p.ccz = (f32(v) for v in cam.center_camera)
+    p.mid, p.wscaled = f32(cam.scale_adjusted_mid), f32(cam.width_scaled)
+    p.half_h = f32(cam.height / 2.0)
+    p.width, p.height = cam.width, cam.height
+    if isinstance(spec.transform, PoissonSaturneTransform):
+        p.transform = 0
+    elif isinstance(spec.transform, AdjustedVelocity):
+        p.transform = 1
+        p.t_offset, p.t_factor = f32(spec.transform.offset), f32(spec.transform.factor)
+    else:
+        raise NotImplementedError(
+            f"the map+emit kernel has no color transform {type(spec.transform).__name__}")
+    return p
+
+
+def map_emit(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = True):
+    """:func:`map_emit_plain`'s contract, through ``csrc/map_emit.cu`` for a
+    CUDA tensor (one launch, counted in ``map_emit.launches``) and through
+    :func:`map_emit_plain` for a CPU tensor."""
+    if points.device.type == "cpu":
+        return map_emit_plain(spec, points, steps, emit=emit)
+    cuda_lib.check_tensor(points, torch.float32, "points")
+    if points.dim() != 2 or points.shape[0] != 3:
+        raise ValueError(f"points must be (3, lanes), got {tuple(points.shape)}")
+    lanes = points.shape[1]
+    n = steps * lanes
+    if n >= 1 << 31:
+        raise ValueError(f"{steps} steps x {lanes} lanes overflow the int32 stream index")
+    flat = packed = None
+    if emit:
+        flat = torch.empty(n, dtype=torch.int32, device=points.device)
+        packed = torch.empty(n, dtype=torch.int32, device=points.device)
+    if n == 0:
+        return (flat, packed) if emit else None
+    params = _kernel_params(spec)
+    lib = cuda_lib.library()
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        err = lib.sat_map_emit(
+            ctypes.c_void_p(points.data_ptr()), lanes, steps, int(emit), params,
+            ctypes.c_void_p(flat.data_ptr() if emit else 0),
+            ctypes.c_void_p(packed.data_ptr() if emit else 0),
+            ctypes.c_void_p(stream))
+    cuda_lib.check_launch(err, "map_emit")
+    map_emit.launches += 1
+    return (flat, packed) if emit else None
+
+
+map_emit.launches = 0
+
+
+def seed_points(lanes: int, generator: torch.Generator) -> torch.Tensor:
+    """Seed points U[0,1)^3 * 0.1 (src/lib.rs:748) as a (lanes, 3) float32
+    CPU tensor: drawn on the CPU so a seed gives the same points on every
+    device."""
+    return torch.rand((lanes, 3), generator=generator, dtype=torch.float32) * f32(0.1)

@@ -1,0 +1,125 @@
+"""Rotation and camera projection math (PyTorch port).
+
+Host-side (numpy, float64) precomputation of the Euler-axis rotation matrix
+and the per-frame camera constants, plus the per-point camera rotation and
+projection on torch tensors (reference: src/lib.rs:755-786).
+
+Every device constant is the float64 host value rounded once to float32,
+the same rounding ``jnp.asarray(v, float32)`` applies, so the torch twins
+and the CUDA map+emit kernel see bit-identical operands.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class EulerAxisRotation:
+    """Euler axis + angle rotation (reference: src/lib.rs:169-196).
+
+    ``axis`` is a 3-tuple; ``rotation`` is the angle around it in radians.
+    The reference normalizes the axis only in debug builds
+    (src/lib.rs:181-183), so ``normalize`` defaults to False: release-build
+    output, which is what the solar-sail preset's non-unit axis was tuned on.
+    """
+
+    axis: tuple[float, float, float]
+    rotation: float
+    normalize: bool = False
+
+    def __post_init__(self):
+        if self.normalize and not math.sqrt(sum(v * v for v in self.axis)) > 0.0:
+            raise ValueError(
+                f"normalize=True requires a nonzero rotation axis, got {self.axis}"
+            )
+
+    def to_rotation_matrix(self) -> np.ndarray:
+        """Rodrigues-form 3x3 row-major matrix, float64 (src/lib.rs:179-215)."""
+        x, y, z = self.axis
+        if self.normalize:
+            n = math.sqrt(x * x + y * y + z * z)
+            x, y, z = x / n, y / n, z / n
+        c = math.cos(self.rotation)
+        c1 = 1.0 - c
+        s = math.sin(self.rotation)
+        return np.array(
+            [
+                [c + x * x * c1, x * y * c1 - z * s, x * z * c1 + y * s],
+                [y * x * c1 + z * s, c + y * y * c1, y * z * c1 - x * s],
+                [z * x * c1 - y * s, z * y * c1 + x * s, c + z * z * c1],
+            ],
+            dtype=np.float64,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraParams:
+    """Per-frame scalar constants hoisted out of the hot loop (float64 host
+    values; src/lib.rs:754-764)."""
+
+    rotation_matrix: tuple  # 3x3 nested tuple, row-major
+    cos_angle: float
+    sin_angle: float
+    center_camera: tuple[float, float, float]
+    width: int
+    height: int
+    width_scaled: float  # width * scale            (src/lib.rs:763)
+    scale_adjusted_mid: float  # 0.5 / scale        (src/lib.rs:764)
+
+
+def camera_params(view, angle: float, width: int, height: int) -> CameraParams:
+    """Build :class:`CameraParams` from a view + camera angle (radians)."""
+    rot = view.rotation.to_rotation_matrix()
+    return CameraParams(
+        rotation_matrix=tuple(tuple(r) for r in rot.tolist()),
+        cos_angle=math.cos(angle),
+        sin_angle=math.sin(angle),
+        center_camera=tuple(float(v) for v in view.center_camera),
+        width=width,
+        height=height,
+        width_scaled=float(width) * view.scale,
+        scale_adjusted_mid=0.5 / view.scale,
+    )
+
+
+def f32(v: float) -> float:
+    """The float32 rounding of a host float64, as a Python float."""
+    return float(np.float32(v))
+
+
+def rotate_xyz(cam: CameraParams, x, y, z):
+    """screen = R @ p in component form, each row as
+    ``(m0*x + m1*y) + m2*z`` -- the JAX package's term order
+    (strange_attractor_tpu/ops/projection.py:112-121)."""
+    m = cam.rotation_matrix
+    sx = f32(m[0][0]) * x + f32(m[0][1]) * y + f32(m[0][2]) * z
+    sy = f32(m[1][0]) * x + f32(m[1][1]) * y + f32(m[1][2]) * z
+    sz = f32(m[2][0]) * x + f32(m[2][1]) * y + f32(m[2][2]) * z
+    return sx, sy, sz
+
+
+def project(cam: CameraParams, sx, sy, sz, cos_v: float, sin_v: float):
+    """Camera-angle rotate + project to pixel coordinates, including the
+    reference's cc.y <-> z pairing quirk (src/lib.rs:776-786)::
+
+        x2 = (sx + cc.x) * cos + (sz + cc.y) * sin
+        z2 = (sx + cc.x) * sin - (sz + cc.y) * cos
+        i  = (0.5/scale - x2) * width * scale
+        j  = height/2 - (sy + cc.z) * width * scale
+
+    ``cos_v``/``sin_v`` are host floats, rounded to float32 here.
+    Returns (fi, fj, z2).
+    """
+    cos_t, sin_t = f32(cos_v), f32(sin_v)
+    xc = sx + f32(cam.center_camera[0])
+    zc = sz + f32(cam.center_camera[1])  # quirk: camera .y pairs with z
+    x2 = xc * cos_t + zc * sin_t
+    z2 = xc * sin_t - zc * cos_t
+    ws = f32(cam.width_scaled)
+    fi = (f32(cam.scale_adjusted_mid) - x2) * ws
+    fj = f32(cam.height / 2.0) - (sy + f32(cam.center_camera[2])) * ws
+    return fi, fj, z2
