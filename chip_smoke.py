@@ -21,7 +21,28 @@ all passed):
    iterations, render -> colorize -> convert -> one host copy -> PNG, with
    both launch counters > 0 and a non-blank image; iters/s and wall time;
 5. the same seeded render at 1e6 iterations through the kernels and through
-   the plain twins on the card: identical planes and PNG bytes.
+   the plain twins on the card: identical planes and PNG bytes;
+6. kernel A in DEPTH (flat, z) and EXACT (flat, z, val) emission against
+   its plain twin at 32768 lanes, every float bit identical: warm-up + 2
+   chunks, poisson-saturne and solar-sail; the time of each mode;
+7. the bin kernels of the fidelity and depth modes (csrc/bin_depth.cu,
+   csrc/bin_exact.cu, csrc/bin_exact16.cu in both tie modes) against their
+   plain twins on the card, bit-identical, at the flagship chunk (4,194,304
+   points over 1920x1080): phase 3's cases plus z ties with both zero
+   signs, special floats (+-0, +-inf, NaN, -1.0), and three chunks onto a
+   non-blank standing state holding -0.0 and exact z ties; each kernel and
+   twin timed on a real emitted stream; and what torch's own float16 cast
+   does with NaN payloads on the card, beside the kernels' bit conversion;
+8. the paths of the other entry points, 1920x1080, seed 1, 1e8 iterations,
+   each with every launch count set to 0 just before it and read after:
+   the --depth flagship (AUTO -> DEPTH_KERNEL: kernel A in depth emission,
+   bin_depth, the Depth tone map, PNG), and Gas frames through
+   exact-kernel and exact16-kernel (ties value, then earliest); non-blank
+   images, iters/s and wall time;
+9. the same seeded 1e6 renders through the kernels and through the plain
+   twins: DEPTH_KERNEL against DEPTH, EXACT_KERNEL against EXACT,
+   EXACT16_KERNEL against its twin route in both tie modes; identical
+   planes and PNG bytes.
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -183,38 +204,54 @@ def _deliver(sat, cfg, state, out_base: Path):
     return write_image(out_base, image, transparent=False, eight_bit=True), image
 
 
-def phase_slice(sat, dev, out_dir: Path, card: str) -> dict:
-    from strange_attractor_tpu_torch.ops import emit, kernel_binning
+def _counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from strange_attractor_tpu_torch.ops import emit, kernel_binning as kb
+
+    return {"map_emit": emit.map_emit, "bin_packed": kb.bin_chunk_kernel,
+            "bin_depth": kb.bin_chunk_kernel_depth, "bin_exact": kb.bin_chunk_kernel_exact,
+            "bin_exact16": kb.bin_chunk_kernel_exact16}
+
+
+def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -> dict:
+    """One frame through the user's entry points with every launch count at
+    0 just before it: render -> colorize -> 8-bit convert -> one host copy
+    -> PNG. Raises unless each of ``kernels`` launched and the image is lit."""
     from strange_attractor_tpu_torch.ops.binning import u32
 
-    cfg = _flagship(sat, 100_000_000)
     lanes, chunk, nchunks = sat.plan_schedule(cfg)
     executed = lanes * chunk * nchunks
-    emit.map_emit.launches = 0
-    kernel_binning.bin_chunk_kernel.launches = 0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = sat.render(cfg, device=dev)
     torch.cuda.synchronize()
     t_render = time.perf_counter() - t0
-    path, img = _deliver(sat, cfg, state, out_dir / "frame")
+    path, img = _deliver(sat, cfg, state, out_base)
     wall = time.perf_counter() - t0
-    launches = {"map_emit": emit.map_emit.launches,
-                "bin_packed": kernel_binning.bin_chunk_kernel.launches}
+    launches = {name: counters[name].launches for name in kernels}
     if min(launches.values()) < 1:
-        raise AssertionError(f"the render did not go through every kernel: {launches}")
-    total = int(u32(state.count).sum())
-    if not 0 < total <= executed:
-        raise AssertionError(f"count.sum() {total} outside (0, {executed}]")
+        raise AssertionError(f"{tag}: the render did not go through every kernel: {launches}")
+    if state.count is not None:
+        total = int(u32(state.count).sum())
+        if not 0 < total <= executed:
+            raise AssertionError(f"{tag}: count.sum() {total} outside (0, {executed}]")
     lit = float((img.max(axis=-1) > 0).mean())
     if not lit > 0.10:
-        raise AssertionError(f"image nearly blank: lit fraction {lit}")
-    print(f"[4] flagship {W}x{H} 1e8: {lanes} lanes x {chunk} steps x {nchunks} chunks = "
-          f"{executed} iterations, count.sum() {total}, lit {lit:.3f}, "
-          f"launches {launches}, wrote {path.stat().st_size} bytes")
-    print(f"[4] render {t_render:.4f} s = {executed / t_render:.4e} iters/s; end-to-end wall "
+        raise AssertionError(f"{tag}: image nearly blank: lit fraction {lit}")
+    print(f"{tag} {W}x{H} {cfg.iterations:.0e}: {lanes} lanes x {chunk} steps x {nchunks} chunks = "
+          f"{executed} iterations, lit {lit:.3f}, launches {launches}, "
+          f"wrote {path.stat().st_size} bytes")
+    print(f"{tag} render {t_render:.4f} s = {executed / t_render:.4e} iters/s; end-to-end wall "
           f"{wall:.4f} s (render + colorize + convert + host copy + PNG) on {card}")
     return {"launches": launches, "t_render": t_render, "wall": wall, "executed": executed}
+
+
+def phase_slice(sat, dev, out_dir: Path, card: str) -> dict:
+    return _drive(sat, dev, _flagship(sat, 100_000_000), out_dir / "frame", card, "[4] flagship",
+                  ("map_emit", "bin_packed"))
 
 
 def phase_twins(sat, dev, out_dir: Path) -> None:
@@ -231,6 +268,206 @@ def phase_twins(sat, dev, out_dir: Path) -> None:
         raise AssertionError("kernel and plain renders wrote different PNG bytes")
     print(f"[5] 1e6 render: kernels and plain twins give identical planes and PNG "
           f"({len(pk)} bytes)")
+
+
+def phase_emit_modes(sat, dev) -> dict:
+    from strange_attractor_tpu_torch.ops import emit
+
+    err, ms = 0.0, {}
+    rng = np.random.default_rng(2)
+    for preset in ("poisson-saturne", "solar-sail"):
+        cfg = sat.presets.by_name(preset, width=W, height=H)
+        spec = emit.emit_spec(cfg, 0.0)
+        warm = torch.from_numpy((rng.random((3, LANES)) * 0.1).astype(np.float32)).to(dev)
+        emit.map_emit(spec, warm, cfg.warmup, emit=False)
+        for kind in (sat.BinStrategy.DEPTH, sat.BinStrategy.EXACT):
+            pk, pp = warm.clone(), warm.clone()
+            for c in range(2):
+                got = emit.map_emit(spec, pk, CHUNK, kind=kind)
+                want = emit.map_emit_plain(spec, pp, CHUNK, kind=kind)
+                for name, g, w in zip(("flat", "z", "val"), got, want):
+                    err = max(err, _check_equal(f"{preset} {kind.value} chunk {c} {name}", g, w))
+                err = max(err, _check_equal(f"{preset} {kind.value} chunk {c} state", pk, pp))
+            print(f"[6] {preset}: {kind.value} emission, 2 x {CHUNK} steps at {LANES} lanes "
+                  f"bit-identical (z and val at full float32)")
+            if preset == "poisson-saturne":
+                ms[kind.value] = _time_ms(lambda: emit.map_emit(spec, pk, CHUNK, kind=kind), 20)
+    print(f"[6] {LANES} lanes x {CHUNK} steps: kernel A depth {ms['depth']:.4f} ms, "
+          f"exact {ms['exact']:.4f} ms")
+    return {"err": err, "ms": ms}
+
+
+def _f16_probe(dev) -> None:
+    """What torch's own float16 cast does with NaN payloads on the card,
+    beside the bit conversion the EXACT16 kernel and its twin use."""
+    from strange_attractor_tpu_torch.ops.binning import f16_bits
+
+    bits = np.array([0x7FC00001, 0xFFC12345, 0x7F800001, 0x7F802000, 0x477FF000, 0x33000001],
+                    np.uint32)
+    f = torch.from_numpy(bits.view(np.float32)).to(dev)
+    hw = (f.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF).tolist()
+    sw = f16_bits(f).tolist()
+    pairs = ", ".join(f"{b:#010x}: cast {h:#06x} bits {w:#06x}" for b, h, w in zip(bits, hw, sw))
+    print(f"[7] f32 -> f16 on the card ({pairs})")
+
+
+def _bin_cases(dev, npix: int, m: int, rng) -> dict:
+    """(flat, z, val) chunk lists on the card: phase 3's cases, z ties with
+    both zero signs, special floats, and three chunks for a standing state."""
+    special = np.array([0.0, -0.0, -1.0, 1.0, np.inf, -np.inf, np.nan, -1e-45, 1e-40,
+                        -1.0000001, 3.4028235e38, 65520.0, 6e-8], np.float32)
+
+    def chunk(flat, z=None, val=None):
+        n = len(flat)
+        z = rng.normal(0, 0.5, n).astype(np.float32) if z is None else z
+        val = rng.random(n).astype(np.float32) if val is None else val
+        return tuple(torch.from_numpy(a).to(dev) for a in (flat.astype(np.int32), z, val))
+
+    def ties(n):
+        z = (rng.integers(-2, 3, n) * 0.25).astype(np.float32)
+        z[rng.random(n) < 0.2] = -0.0
+        return chunk(rng.integers(0, 50, n), z, (rng.integers(0, 8, n) / 8).astype(np.float32))
+
+    flat = rng.integers(0, npix, m)
+    flat[rng.random(m) < 0.05] = npix
+    flood = rng.integers(0, npix, m)
+    flood[rng.random(m) < 0.40] = 0
+    return {
+        "random 5% oob": [chunk(flat)],
+        "z ties and both zero signs on 50 px": [ties(m)],
+        "special floats on 64 px": [chunk(rng.integers(0, 64, m), rng.choice(special, m),
+                                          rng.choice(special, m))],
+        "40% pixel-0 flood": [chunk(flood)],
+        "all out of bounds": [chunk(np.full(m, npix))],
+        "3 chunks onto a standing state": [ties(m), chunk(rng.integers(0, npix + 1, m)),
+                                           chunk(rng.integers(0, 64, m), rng.choice(special, m))],
+        "ragged 1000003 points": [chunk(rng.integers(0, npix + 1, 1_000_003))],
+    }
+
+
+def _standing(dev, npix: int, rng, blank: bool):
+    """EXACT planes (count, steps, zbuf): blank, or random with sentinels,
+    -0.0 and +0.0 bands and z values the ties case hits exactly."""
+    if blank:
+        return (torch.zeros(npix, dtype=torch.int32, device=dev),
+                torch.zeros(npix, dtype=torch.float32, device=dev),
+                torch.full((npix,), -1.0, dtype=torch.float32, device=dev))
+    zbuf = rng.normal(0, 0.5, npix).astype(np.float32)
+    zbuf[rng.random(npix) < 0.3] = -1.0
+    zbuf[:50] = (rng.integers(-2, 3, 50) * 0.25).astype(np.float32)
+    zbuf[50:80] = -0.0
+    zbuf[80:100] = 0.0
+    return tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 1000, npix).astype(np.int32), rng.random(npix).astype(np.float32), zbuf))
+
+
+def phase_bins(sat, dev, a: dict) -> dict:
+    from strange_attractor_tpu_torch.ops import binning, emit, kernel_binning as kb
+
+    npix, m = W * H, LANES * CHUNK
+    rng = np.random.default_rng(3)
+    _f16_probe(dev)
+    scratch = kb.new_scratch(npix, dev)
+    # name -> (kernel, twin, planes: "depth" or "exact")
+    bins = {
+        "bin_depth": (kb.bin_chunk_kernel_depth, binning.bin_chunk_depth, "depth"),
+        "bin_exact": (lambda *p: kb.bin_chunk_kernel_exact(*p, scratch=scratch),
+                      binning.bin_chunk_exact, "exact"),
+        "bin_exact16_value": (
+            lambda *p: kb.bin_chunk_kernel_exact16(*p, ties="value", scratch=scratch),
+            lambda *p: binning.bin_chunk_exact16(*p, ties="value"), "exact"),
+        "bin_exact16_earliest": (
+            lambda *p: kb.bin_chunk_kernel_exact16(*p, ties="earliest", scratch=scratch),
+            lambda *p: binning.bin_chunk_exact16(*p, ties="earliest"), "exact"),
+    }
+    cases = _bin_cases(dev, npix, m, rng)
+    out = {}
+    for name, (kernel, twin, planes) in bins.items():
+        for case, chunks in cases.items():
+            start = _standing(dev, npix, rng, blank=not case.startswith("3 chunks"))
+            if planes == "depth":
+                start = start[2:]
+            pk, pt = tuple(p.clone() for p in start), start
+            for f, z, v in chunks:
+                stream = (f, z) if planes == "depth" else (f, z, v)
+                pk = kernel(*pk, *stream)
+                pt = twin(*pt, *stream)
+            for i, (g, w) in enumerate(zip(pk, pt)):
+                _check_equal(f"{name} {case} plane {i}", g, w)
+            if not bool((scratch == -1).all()):
+                raise AssertionError(f"{name} {case}: the scratch plane was left dirty")
+        print(f"[7] {name}: {len(cases)} cases over {npix} px bit-identical to its plain twin")
+        # timing on a real flagship chunk stream of the matching emission
+        pts = a["pts"].clone()
+        kind = sat.BinStrategy.DEPTH if planes == "depth" else sat.BinStrategy.EXACT
+        stream = emit.map_emit(a["spec"], pts, CHUNK, kind=kind)
+        state = _standing(dev, npix, rng, blank=True)
+        state = state[2:] if planes == "depth" else state
+        ms = _time_ms(lambda: kernel(*state, *stream), reps=20)
+        plain_ms = _time_ms(lambda: twin(*state, *stream), reps=5, warm=1)
+        print(f"[7] {name}: M={m} points, npix={npix}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        out[name] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def phase_paths(sat, dev, out_dir: Path, card: str) -> dict:
+    depth = _flagship(sat, 100_000_000, render=sat.RenderKind.DEPTH)
+    if depth.resolved_bin_strategy() != sat.BinStrategy.DEPTH_KERNEL:
+        raise AssertionError("AUTO did not resolve to DEPTH_KERNEL for a depth render")
+    runs = {"bin_depth": _drive(sat, dev, depth, out_dir / "depth", card, "[8] depth flagship",
+                                ("map_emit", "bin_depth"))}
+    exact = _flagship(sat, 100_000_000, bin_strategy=sat.BinStrategy.EXACT_KERNEL)
+    runs["bin_exact"] = _drive(sat, dev, exact, out_dir / "exact", card, "[8] exact-kernel",
+                               ("map_emit", "bin_exact"))
+    for ties in ("value", "earliest"):
+        cfg = _flagship(sat, 100_000_000, bin_strategy=sat.BinStrategy.EXACT16_KERNEL,
+                        exact16_ties=ties)
+        runs[f"bin_exact16_{ties}"] = _drive(sat, dev, cfg, out_dir / f"exact16_{ties}", card,
+                                             f"[8] exact16-kernel ties={ties}",
+                                             ("map_emit", "bin_exact16"))
+    return runs
+
+
+def phase_path_twins(sat, dev, out_dir: Path) -> None:
+    from strange_attractor_tpu_torch.ops import emit
+    from strange_attractor_tpu_torch.render import seed_generator
+
+    B = sat.BinStrategy
+    pairs = [("DEPTH_KERNEL vs DEPTH", dict(render=sat.RenderKind.DEPTH),
+              B.DEPTH_KERNEL, B.DEPTH),
+             ("EXACT_KERNEL vs EXACT", {}, B.EXACT_KERNEL, B.EXACT),
+             ("EXACT16_KERNEL value vs twins", dict(exact16_ties="value"),
+              B.EXACT16_KERNEL, None),
+             ("EXACT16_KERNEL earliest vs twins", dict(exact16_ties="earliest"),
+              B.EXACT16_KERNEL, None)]
+    for label, kw, kernel, plain in pairs:
+        cfg = _flagship(sat, 1_000_000, bin_strategy=kernel, **kw)
+        lanes, chunk, _ = sat.plan_schedule(cfg)
+        cfg = cfg.replace(lanes=lanes, chunk_steps=chunk)
+        seeds = emit.seed_points(lanes, seed_generator(cfg)).to(dev)
+        kern = sat.render_seeds(cfg, seeds)
+        twin = (sat.render_seeds(cfg, seeds, plain=True) if plain is None
+                else sat.render_seeds(cfg.replace(bin_strategy=plain), seeds))
+        for name, g in kern._asdict().items():
+            if g is not None:
+                _check_equal(f"[9] {label} {name} plane", g, getattr(twin, name))
+        pk = _deliver(sat, cfg, kern, out_dir / "kernel")[0].read_bytes()
+        pp = _deliver(sat, cfg, twin, out_dir / "plain")[0].read_bytes()
+        if pk != pp:
+            raise AssertionError(f"[9] {label}: kernel and plain renders wrote different PNGs")
+        print(f"[9] 1e6 render {label}: identical planes and PNG ({len(pk)} bytes)")
+
+
+
+_SOURCE = "strange_attractor_tpu_torch/csrc/"
+_TPU = "strange_attractor_tpu/ops/kernel_binning.py:"
+# kernel row -> (source, replaces, path run that reports its launches)
+_NEW_ROWS = {
+    "bin_depth": ("bin_depth.cu", _TPU + "735", "bin_depth"),
+    "bin_exact": ("bin_exact.cu", _TPU + "542", "bin_exact"),
+    "bin_exact16_value": ("bin_exact16.cu", _TPU + "584", "bin_exact16"),
+    "bin_exact16_earliest": ("bin_exact16.cu", _TPU + "584", "bin_exact16"),
+}
 
 
 def main() -> int:
@@ -254,13 +491,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         s = phase_slice(sat, dev, Path(tmp), card)
         phase_twins(sat, dev, Path(tmp))
+        modes = phase_emit_modes(sat, dev)
+        bins = phase_bins(sat, dev, a)
+        runs = phase_paths(sat, dev, Path(tmp), card)
+        phase_path_twins(sat, dev, Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
         {"name": "map_emit", "route": "cuda",
          "source": "strange_attractor_tpu_torch/csrc/map_emit.cu",
          "replaces": "strange_attractor_tpu/render.py:410",
-         "launches": s["launches"]["map_emit"], "max_abs_err": a["err"],
+         "launches": s["launches"]["map_emit"], "max_abs_err": max(a["err"], modes["err"]),
          "ms": a["ms"], "plain_ms": a["plain_ms"]},
         {"name": "bin_packed", "route": "cuda",
          "source": "strange_attractor_tpu_torch/csrc/bin_packed.cu",
@@ -268,6 +509,11 @@ def main() -> int:
          "launches": s["launches"]["bin_packed"], "max_abs_err": b["err"],
          "ms": b["ms"], "plain_ms": b["plain_ms"]},
     ]
+    for name, (source, replaces, counter) in _NEW_ROWS.items():
+        kernels.append({"name": name, "route": "cuda", "source": _SOURCE + source,
+                        "replaces": replaces, "launches": runs[name]["launches"][counter],
+                        "max_abs_err": bins[name]["err"], "ms": bins[name]["ms"],
+                        "plain_ms": bins[name]["plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

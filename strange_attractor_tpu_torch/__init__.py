@@ -1,15 +1,18 @@
 """Strange-attractor renderer: the PyTorch/CUDA port of ``strange_attractor_tpu``.
 
-The flagship path runs on one NVIDIA Hopper card through two hand-written
-CUDA kernels (``csrc/``): a fused map+emit chunk kernel and the KERNEL-
-strategy bin. Every kernel has a plain PyTorch twin beside it; the wrappers
-run the twin for CPU tensors only. This package imports no JAX::
+Renders run on one NVIDIA Hopper card through hand-written CUDA kernels
+(``csrc/``): a fused map+emit chunk kernel and one bin kernel per kernel
+strategy (KERNEL, DEPTH_KERNEL, EXACT_KERNEL, EXACT16_KERNEL). Every kernel
+has a plain PyTorch twin beside it; the wrappers run the twin for CPU
+tensors only. This package imports no JAX::
 
-    from strange_attractor_tpu_torch import colorize, presets, render
+    from strange_attractor_tpu_torch import RenderKind, colorize, presets, render
 
     config = presets.poisson_saturne(iterations=100_000_000, seed=1)
     state = render(config, device="cuda")   # accumulates; call again to refine
     image = colorize(config, state)         # (H, W, 4) uint16 RGBA on the card
+    depth = presets.poisson_saturne(iterations=100_000_000, render=RenderKind.DEPTH)
+    gray = colorize(depth, render(depth, device="cuda"))
 """
 
 from .config import BinStrategy, BrightnessConstants, Colors, Config, Palette, RenderKind, View

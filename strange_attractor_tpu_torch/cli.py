@@ -4,10 +4,12 @@ is ported.
 
     python -m strange_attractor_tpu_torch -i 100000000 -8 -b -0.25 -o out/frame
 
+    python -m strange_attractor_tpu_torch --depth -i 100000000 -8 -o out/depth
+
 Path: render -> colorize -> convert on the device -> one host copy ->
-write. ``sequence``, ``completion``, ``doctor`` and ``--depth`` exit with a
-"not yet ported" error; the JAX package (``python -m strange_attractor_tpu``)
-has them.
+write. ``sequence``, ``completion`` and ``doctor`` exit with a "not yet
+ported" error; the JAX package (``python -m strange_attractor_tpu``) has
+them.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .config import BrightnessConstants, Colors
+from .config import BinStrategy, BrightnessConstants, Colors, RenderKind
 from .models import presets
 
 _NOT_PORTED = ("sequence", "completion", "doctor")
@@ -30,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
         add_help=False,
     )
     p.add_argument("--help", action="help", help="Print help")
-    p.add_argument("--depth", action="store_true", help="output depth information (not yet ported)")
+    p.add_argument("--depth", action="store_true", help="output depth information")
     p.add_argument("-8", "--8-bit", dest="eight_bit", action="store_true",
                    help="Write image in an 8-bit format")
     p.add_argument("-t", "--transparent", action="store_true",
@@ -60,6 +62,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Parallel trajectory lanes (default: auto from iterations)")
     p.add_argument("--chunk-steps", type=int, default=None,
                    help="Map steps per binning flush (default: auto)")
+    p.add_argument("--bin-strategy", choices=[s.value for s in BinStrategy], default="auto",
+                   help="Canvas accumulation strategy. 'auto' picks 'kernel' for Gas and "
+                        "'depth-kernel' for --depth renders; kernel/packed quantize depth "
+                        "to ~2^-11 relative and the palette position to 1/4096, "
+                        "'exact-kernel' keeps full float32 with the reference's strict "
+                        "z-test, 'exact16-kernel' the same discipline at 16-bit z "
+                        "granularity. The *-kernel strategies run the CUDA kernels; "
+                        "'packed', 'depth' and 'exact' their plain PyTorch twins.")
+    p.add_argument("--exact16-ties", dest="exact16_ties", choices=["value", "earliest"],
+                   default="value",
+                   help="exact16-kernel bucket-tie rule: 'value' (smallest f16 value of "
+                        "the top z bucket) or 'earliest' (first-emitted point)")
     p.add_argument("--seed", type=int, default=None, help="Deterministic RNG seed")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda; 'cpu' runs the "
@@ -76,9 +90,15 @@ def _validate(args, parser):
     if args.subcommand is not None:
         parser.error(f"'{args.subcommand}' is not yet ported to the PyTorch package; "
                      f"run it with python -m strange_attractor_tpu")
-    if args.depth:
-        parser.error("--depth is not yet ported to the PyTorch package; "
-                     "run it with python -m strange_attractor_tpu")
+    # a depth-only accumulation cannot be colorized as a Gas render, and a
+    # PACKED one keeps no z-buffer plane for a depth render
+    if args.bin_strategy in ("depth", "depth-kernel") and not args.depth:
+        parser.error(f"--bin-strategy {args.bin_strategy} requires --depth "
+                     "(it accumulates only the z-buffer)")
+    if args.depth and args.bin_strategy in ("packed", "kernel"):
+        parser.error(f"--bin-strategy {args.bin_strategy} cannot serve --depth (it "
+                     "accumulates no z-buffer plane); use auto, depth, depth-kernel, or "
+                     "a fidelity mode")
     if (args.pam or args.bmp) and not args.eight_bit:
         parser.error("--pam/--bmp require --8-bit (16-bit images are not supported)")
     if args.pam and args.bmp:
@@ -100,6 +120,9 @@ def config_from_args(args):
         lanes=args.lanes,
         chunk_steps=args.chunk_steps,
         seed=args.seed,
+        render=RenderKind.DEPTH if args.depth else RenderKind.GAS,
+        bin_strategy=BinStrategy(args.bin_strategy),
+        exact16_ties=args.exact16_ties,
     )
     if args.scale is not None:
         config = config.replace(view=config.view.replace(scale=args.scale))

@@ -104,17 +104,27 @@ class BinStrategy(enum.Enum):
     """How points are accumulated into the canvas.
 
     The values are the JAX package's, so configs and checkpoints name the
-    same strategies in both. The port implements two of them:
+    same strategies in both. Three plane layouts (:meth:`planes_kind`):
+    PACKED (count u32, packed u32), DEPTH (zbuf f32) and EXACT (count u32,
+    steps f32, zbuf f32).
 
-    - PACKED: two planes (count u32, packed u32), accumulated by plain
-      torch scatters (:func:`ops.binning.bin_chunk_packed`) after the plain
-      torch map step (:func:`ops.emit.map_emit_plain`).
-    - KERNEL: the same planes, bit for bit, through the hand-written CUDA
-      kernels on a CUDA device (``csrc/map_emit.cu``, ``csrc/bin_packed.cu``);
-      on a CPU tensor the wrappers run the plain twins.
+    The kernel strategies run the hand-written CUDA kernels on a CUDA device
+    (``csrc/map_emit.cu`` and one bin kernel each); on a CPU tensor the
+    wrappers run the plain twins:
 
-    EXACT, DEPTH, EXACT_KERNEL, EXACT16_KERNEL and DEPTH_KERNEL are not
-    ported yet (ROADMAP queue B); :func:`render.render` raises for them.
+    - KERNEL: PACKED planes, ``csrc/bin_packed.cu``;
+    - DEPTH_KERNEL: the DEPTH plane, ``csrc/bin_depth.cu``;
+    - EXACT_KERNEL: EXACT planes at full float32, strict z-test, earliest
+      point on an equal (pixel, z) pair, ``csrc/bin_exact.cu``;
+    - EXACT16_KERNEL: EXACT planes with z at 16-bit bucket granularity and
+      the value through float16, bucket ties by ``Config.exact16_ties``,
+      ``csrc/bin_exact16.cu``.
+
+    The scatter strategies PACKED, DEPTH and EXACT run the plain torch twins
+    of KERNEL, DEPTH_KERNEL and EXACT_KERNEL (:mod:`ops.binning`) on any
+    device and give the same planes bit for bit. (The JAX package's scatter
+    EXACT leaves an equal (pixel, z) pair inside one chunk undefined; the
+    port's takes the earliest point, as EXACT_KERNEL does.)
     """
 
     EXACT = "exact"
@@ -164,6 +174,9 @@ class Config:
     chunk_steps: Optional[int] = None
     warmup: int = 1000
     bin_strategy: BinStrategy = BinStrategy.AUTO
+    # EXACT16_KERNEL bucket ties: "value" (smallest float16 value of the top
+    # z bucket) or "earliest" (first-emitted point of the top bucket)
+    exact16_ties: str = "value"
     seed: Optional[int] = None
     reseed_lanes: bool = False
 
@@ -174,6 +187,9 @@ class Config:
             raise ValueError(f"iterations must be non-negative, got {self.iterations}")
         if self.warmup < 0:
             raise ValueError(f"warmup must be non-negative, got {self.warmup}")
+        if self.exact16_ties not in ("value", "earliest"):
+            raise ValueError(
+                f"exact16_ties must be 'value' or 'earliest', got {self.exact16_ties!r}")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -206,9 +222,9 @@ class Config:
         """AUTO -> KERNEL for Gas renders, DEPTH_KERNEL for Depth.
 
         The JAX package resolves AUTO to the kernel strategies only on a
-        TPU. The port resolves it so on every device: the KERNEL wrappers
-        run the CUDA kernels on a CUDA device and their plain twins on the
-        CPU, and EXACT (the JAX package's CPU choice) is not ported yet."""
+        TPU (EXACT elsewhere). The port resolves it so on every device: the
+        kernel wrappers run the CUDA kernels on a CUDA device and their
+        plain twins on the CPU."""
         if self.bin_strategy != BinStrategy.AUTO:
             return self.bin_strategy
         return BinStrategy.DEPTH_KERNEL if self.render == RenderKind.DEPTH else BinStrategy.KERNEL

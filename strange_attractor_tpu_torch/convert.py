@@ -28,9 +28,12 @@ def _transform(ref):
 
 def config_from_reference(ref) -> Config:
     """The port's Config for a JAX-package Config ``ref``: coefficients,
-    view, color transform, palette stops, brightness, sizes and schedule
-    knobs. Raises NotImplementedError for what the port does not run yet
-    (non-Sprott attractors, other transforms, float64)."""
+    view, color transform, palette stops, brightness, sizes, schedule knobs,
+    bin strategy and ``exact16_ties``. ``kernel_section`` and
+    ``kernel_window`` are not carried: they size the TPU's sort sections
+    and apply windows, which the Hopper kernels do not have. Raises
+    NotImplementedError for what the port does not run yet (non-Sprott
+    attractors, other transforms, float64)."""
     att = ref.attractor
     if type(att).__name__ != "PolynomialSprott2Degree":
         raise NotImplementedError(f"attractor {type(att).__name__} is not ported yet")
@@ -62,6 +65,7 @@ def config_from_reference(ref) -> Config:
         chunk_steps=ref.chunk_steps,
         warmup=int(ref.warmup),
         bin_strategy=BinStrategy(ref.bin_strategy.value),
+        exact16_ties=str(ref.exact16_ties),
         seed=ref.seed,
         reseed_lanes=bool(ref.reseed_lanes),
     )

@@ -11,8 +11,14 @@
 // back. Each step runs the Sprott map, the view rotation, the camera
 // projection, the color transform, the bounds check and the (z, value)
 // packing, and writes flat[s*lanes + lane] (int32 pixel, npix = out of
-// bounds) and packed[s*lanes + lane] (u32) -- the step-major order of JAX's
-// emitted.reshape(-1). With emit == 0 (the warm-up) it only iterates.
+// bounds) and the payload of the bin strategy's planes kind at the same
+// index -- the step-major order of JAX's emitted.reshape(-1) -- as
+// _finish_emit does (render.py:192-196):
+//   MODE_PACKED: packed (u32, pack_zv of z and the value);
+//   MODE_DEPTH:  z (f32; the color transform is skipped);
+//   MODE_EXACT:  z and val (f32 each, full precision).
+// NaN z becomes -inf in every mode. MODE_NONE (the warm-up) only iterates.
+// The mode is a template parameter: one branch-free loop per mode.
 //
 // What bounds it on the H100: a long dependent float32 chain per thread
 // (~90 flops per step, plus an IEEE sqrt and two IEEE divisions) at one
@@ -73,9 +79,12 @@ __device__ __forceinline__ unsigned pack_zv(float z, float val) {
   return (d & 0xFFFFF000u) | (unsigned)(q * 4096.0f);
 }
 
-__global__ void map_emit_kernel(float* __restrict__ pts, int lanes, int steps, int emit,
-                                EmitParams p, int* __restrict__ flat,
-                                unsigned* __restrict__ packed) {
+enum { MODE_NONE = 0, MODE_PACKED = 1, MODE_DEPTH = 2, MODE_EXACT = 3 };
+
+template <int MODE>
+__global__ void map_emit_kernel(float* __restrict__ pts, int lanes, int steps, EmitParams p,
+                                int* __restrict__ flat, unsigned* __restrict__ out1,
+                                float* __restrict__ out2) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
   float x = pts[lane], y = pts[lanes + lane], z = pts[2 * lanes + lane];
@@ -86,7 +95,7 @@ __global__ void map_emit_kernel(float* __restrict__ pts, int lanes, int steps, i
     float nx = sprott_dot(p.coef, x, y, z);
     float ny = sprott_dot(p.coef + 10, x, y, z);
     float nz = sprott_dot(p.coef + 20, x, y, z);
-    if (emit) {
+    if (MODE != MODE_NONE) {
       // view rotation, rows as (m0*x + m1*y) + m2*z
       float sx = p.rot[0] * nx + p.rot[1] * ny + p.rot[2] * nz;
       float sy = p.rot[3] * nx + p.rot[4] * ny + p.rot[5] * nz;
@@ -98,20 +107,24 @@ __global__ void map_emit_kernel(float* __restrict__ pts, int lanes, int steps, i
       float z2 = xc * p.sin_v - zc * p.cos_v;
       float fi = (p.mid - x2) * p.wscaled;
       float fj = p.half_h - (sy + p.ccz) * p.wscaled;
-      // color transform on delta = new - previous point
-      float dx = nx - x, dy = ny - y, dz = nz - z;
-      float mag = sqrtf(dx * dx + dy * dy + dz * dz);
-      float val;
-      if (p.transform == 0) {
-        float t = (sx + p.ccx) * (float)0.7009092642998509 + (sz + p.ccy) * (float)0.7132504491541816;
-        bool outside = (t < (float)-0.0839) ||
-                       ((float)10.55 * t + sy < (float)(0.46 - 1.0941)) ||
-                       ((float)1.0426 * t + sy < (float)(0.179 - 0.1576)) ||
-                       ((float)0.5139 * t - sy > (float)(-0.04 - 0.04092));
-        float color = ((outside ? 0.0f : 1.0f) + mag) / 2.0f;
-        val = (color - (float)0.1) / (float)0.9;
-      } else {
-        val = (mag + p.t_offset) * p.t_factor;
+      // color transform on delta = new - previous point; a depth stream
+      // carries no value
+      float val = 0.0f;
+      if (MODE != MODE_DEPTH) {
+        float dx = nx - x, dy = ny - y, dz = nz - z;
+        float mag = sqrtf(dx * dx + dy * dy + dz * dz);
+        if (p.transform == 0) {
+          float t = (sx + p.ccx) * (float)0.7009092642998509 +
+                    (sz + p.ccy) * (float)0.7132504491541816;
+          bool outside = (t < (float)-0.0839) ||
+                         ((float)10.55 * t + sy < (float)(0.46 - 1.0941)) ||
+                         ((float)1.0426 * t + sy < (float)(0.179 - 0.1576)) ||
+                         ((float)0.5139 * t - sy > (float)(-0.04 - 0.04092));
+          float color = ((outside ? 0.0f : 1.0f) + mag) / 2.0f;
+          val = (color - (float)0.1) / (float)0.9;
+        } else {
+          val = (mag + p.t_offset) * p.t_factor;
+        }
       }
       // bounds check: NaN passes and bins at pixel (0, 0) (src/lib.rs:789-812)
       bool oob = (fi >= fw) || (fj >= fh) || (fi < 0.0f) || (fj < 0.0f);
@@ -123,7 +136,12 @@ __global__ void map_emit_kernel(float* __restrict__ pts, int lanes, int steps, i
       }
       if (isnan(z2)) z2 = -INFINITY;
       flat[out] = f;
-      packed[out] = pack_zv(z2, val);
+      if (MODE == MODE_PACKED) {
+        out1[out] = pack_zv(z2, val);
+      } else {
+        out1[out] = __float_as_uint(z2);
+        if (MODE == MODE_EXACT) out2[out] = val;
+      }
       out += lanes;
     }
     x = nx;
@@ -135,11 +153,30 @@ __global__ void map_emit_kernel(float* __restrict__ pts, int lanes, int steps, i
   pts[2 * lanes + lane] = z;
 }
 
-extern "C" int sat_map_emit(float* pts, int lanes, int steps, int emit, EmitParams p,
-                            int* flat, unsigned* packed, void* stream) {
+// out1: packed (u32) or z (f32 bits); out2: val (MODE_EXACT only)
+extern "C" int sat_map_emit(float* pts, int lanes, int steps, int mode, EmitParams p,
+                            int* flat, unsigned* out1, float* out2, void* stream) {
   const int threads = 128;
   int blocks = (lanes + threads - 1) / threads;
-  map_emit_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(pts, lanes, steps, emit, p,
-                                                                 flat, packed);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_NONE:
+      map_emit_kernel<MODE_NONE><<<blocks, threads, 0, s>>>(pts, lanes, steps, p, flat, out1, out2);
+      break;
+    case MODE_PACKED:
+      map_emit_kernel<MODE_PACKED><<<blocks, threads, 0, s>>>(pts, lanes, steps, p, flat, out1,
+                                                              out2);
+      break;
+    case MODE_DEPTH:
+      map_emit_kernel<MODE_DEPTH><<<blocks, threads, 0, s>>>(pts, lanes, steps, p, flat, out1,
+                                                             out2);
+      break;
+    case MODE_EXACT:
+      map_emit_kernel<MODE_EXACT><<<blocks, threads, 0, s>>>(pts, lanes, steps, p, flat, out1,
+                                                             out2);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@ reference's ``colorize`` (src/lib.rs:841-904) as elementwise torch ops.
 
 Gas mode: palette-interpolate the stored color value, scale brightness by
 ``log(count+1) / log(max+1)``, apply the brightness constants, and cast with
-Rust ``as u16`` saturation semantics. Plain torch: it is no Pallas kernel in
-the JAX package either. The Depth tone map is not ported yet.
+Rust ``as u16`` saturation semantics. Depth mode: reverse-lerp the z-buffer
+between its (sentinel-excluded) min and max into 16-bit gray. Plain torch:
+neither is a Pallas kernel in the JAX package.
 
 Rounding: every op is the JAX package's float32 op in the same order, with
 two functions taken correctly rounded on every device: the square root
@@ -48,8 +49,10 @@ def palette_lookup(stops: np.ndarray, value: torch.Tensor, *, gather: bool | Non
     k = stops.shape[0] - 1
     # only v >= 1.0 clamps (to 0.999999); [0.999999, 1.0) passes unchanged
     v = torch.where(value >= 1.0, f32(0.999999), torch.clamp(value, min=0.0)) * float(k)
-    # f32 can round v up to exactly k within half an ulp of 1.0; clamp
-    n = torch.clamp(torch.floor(v).to(torch.int64), max=k - 1)
+    # f32 can round v up to exactly k within half an ulp of 1.0; clamp. A
+    # NaN value casts to a negative index, which the lower bound keeps in
+    # the table (its lerp is NaN whatever the rows, as in the JAX package)
+    n = torch.clamp(torch.floor(v).to(torch.int64), 0, k - 1)
     frac = torch.fmod(v, 1.0)
     if gather is None:
         gather = k > PALETTE_SELECT_MAX_STOPS
@@ -81,25 +84,39 @@ def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def colorize_stats(config: Config, count, steps, zbuf):
-    """Gas mode's global reduction: the max count as float32 (the reference
-    tracks it as a running max, src/lib.rs:813-815)."""
-    del steps, zbuf
-    _check_gas(config, count)
+    """The global reductions of the tone map, each a 0-d device tensor: Gas
+    mode the max count as float32 (the reference tracks it as a running
+    max, src/lib.rs:813-815); Depth mode the sentinel-excluded (zmax, zmin)
+    fold, which starts at (0.0, f32::MAX) (src/lib.rs:875-899), so an
+    all-valid, all-negative plane still normalizes against zmax = 0.0."""
+    del steps
+    if config.render == RenderKind.DEPTH:
+        valid = zbuf != -1.0
+        zero = torch.zeros((), dtype=torch.float32, device=zbuf.device)
+        zmax = torch.maximum(zero, torch.where(valid, zbuf, zero).max())
+        return zmax, torch.where(valid, zbuf, f32(np.finfo(np.float32).max)).min()
+    _check_gas(count)
     return (u32(count).to(torch.float32).max(),)
 
 
-def _check_gas(config: Config, count) -> None:
-    if config.render != RenderKind.GAS:
-        raise NotImplementedError("the Depth tone map is not ported yet; use the "
-                                  "JAX package (strange_attractor_tpu) for --depth")
+def _check_gas(count) -> None:
     if count is None:
-        raise ValueError("this state carries no count plane and cannot be "
-                         "colorized as a Gas render")
+        raise ValueError("this state was accumulated with BinStrategy.DEPTH (z-buffer "
+                         "only) and cannot be colorized as a Gas render; use "
+                         "BinStrategy.PACKED/EXACT if you need both render kinds")
 
 
 def colorize_planes(config: Config, count, steps, zbuf, stats=None):
-    """Tone-map planes to an (H, W, 4) uint16 RGBA tensor (Gas mode)."""
-    _check_gas(config, count)
+    """Tone-map planes to an (H, W, 4) uint16 RGBA tensor."""
+    if config.render == RenderKind.DEPTH:
+        # src/lib.rs:875-899; the divisor is a device tensor, so the quotient
+        # is IEEE on every device (models.transforms.div_ieee)
+        zmax, zmin = stats if stats is not None else colorize_stats(config, count, steps, zbuf)
+        z = torch.where(zbuf != -1.0, (zbuf - zmin) / (zmax - zmin), 0.0)
+        gray = _saturate_u16(z * f32(65535.0))
+        alpha = torch.full(tuple(zbuf.shape), 65535, dtype=torch.uint16, device=zbuf.device)
+        return torch.stack([gray, gray, gray, alpha], dim=-1)
+    _check_gas(count)
     bk = config.colors.brightness
     rgb = palette_lookup(config.colors.palette.stops, steps)
     cf = u32(count).to(torch.float32)

@@ -2,11 +2,13 @@
 
 The sources compile with ``nvcc`` into one shared library with a plain C
 interface, loaded with ``ctypes`` -- a few seconds, where a build against
-PyTorch's C++ headers takes minutes. The build happens at first use, into
-``build/torch_kernels/`` beside the package, under a name keyed on a hash of
-the sources and flags, so a changed source rebuilds and an unchanged one
-loads the existing library. Nothing is built at import: the CPU tests import
-every module on machines with no CUDA toolkit.
+PyTorch's C++ headers takes minutes. Each source compiles in its own
+``nvcc`` process, all started together, and one more links them. The build
+happens at first use, into ``build/torch_kernels/`` beside the package,
+under a name keyed on a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one loads the existing library. Nothing is built
+at import: the CPU tests import every module on machines with no CUDA
+toolkit.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that no multiply
 and add contract into an FMA -- the kernels then round exactly as their
@@ -27,9 +29,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("map_emit.cu", "bin_packed.cu")
+SOURCES = ("map_emit.cu", "bin_packed.cu", "bin_depth.cu", "bin_exact.cu", "bin_exact16.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 
@@ -70,24 +72,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsat_torch_{h.hexdigest()[:16]}.so"
 
 
+def _check_run(cmd: list, proc: subprocess.Popen) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the same sources exists."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, path)  # atomic: two processes building at once race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)] for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        try:
+            for cmd, proc in zip(cmds, procs):
+                _check_run(cmd, proc)
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+        lib = str(Path(tmp) / "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
+        _check_run(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+        os.replace(lib, path)  # atomic: two processes building at once race harmlessly
     return path
 
 
@@ -97,14 +111,32 @@ def library() -> ctypes.CDLL:
     if lib is not None:
         return lib
     lib = ctypes.CDLL(str(build()))
-    vp = ctypes.c_void_p
-    lib.sat_map_emit.argtypes = [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 EmitParams, vp, vp, vp]
-    lib.sat_map_emit.restype = ctypes.c_int
-    lib.sat_bin_packed.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
-    lib.sat_bin_packed.restype = ctypes.c_int
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # every entry point ends with the stream and returns cudaGetLastError()
+    argtypes = {
+        "sat_map_emit": [vp, i32, i32, i32, EmitParams, vp, vp, vp],
+        "sat_bin_packed": [vp, vp, vp, vp, i64, i32],
+        "sat_bin_depth": [vp, vp, vp, i64, i32],
+        "sat_bin_exact": [vp, vp, vp, vp, vp, vp, vp, i64, i32],
+        "sat_bin_exact16": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [*types, vp]
+        fn.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` (tensor pointers as
+    ``data_ptr()`` ints) on ``device``'s current stream; raise if it
+    reports a CUDA error."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    check_launch(err, name)
 
 
 def check_tensor(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:

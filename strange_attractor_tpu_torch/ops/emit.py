@@ -13,6 +13,11 @@ Two implementations with one contract:
   thread per lane carries the point in registers through all steps. For a
   CPU tensor it runs :func:`map_emit_plain`.
 
+The stream depends on the planes kind of the bin strategy, as in
+``_finish_emit`` (render.py:192-196): PACKED emits ``(flat, packed)``, DEPTH
+``(flat, z)`` and EXACT ``(flat, z, val)``, with full float32 ``z`` and
+``val``; a NaN ``z`` becomes -inf in every kind.
+
 Lane state is a (3, lanes) float32 tensor of the current points, updated in
 place. The JAX package also carries the previous point, but at every chunk
 boundary it equals the current one (the carry sets both to the new point,
@@ -23,13 +28,12 @@ lane`` -- JAX's ``emitted.reshape(-1)`` order.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 
 import torch
 
-from ..config import Config
+from ..config import BinStrategy, Config
 from ..models.attractors import PolynomialSprott2Degree
 from ..models.transforms import AdjustedVelocity, PoissonSaturneTransform
 from . import cuda_lib
@@ -57,8 +61,10 @@ def emit_spec(config: Config, angle: float) -> EmitSpec:
     return EmitSpec(config.attractor, config.color_transform, config.view, cam)
 
 
-def finish_emit(npix: int, width: int, height: int, fi, fj, z2, val):
-    """Bounds check + (z, value) packing of one point batch -> (flat, packed).
+def finish_emit(npix: int, width: int, height: int, fi, fj, z2, val,
+                kind: BinStrategy = BinStrategy.PACKED):
+    """Bounds check and the stream of one point batch for the planes kind of
+    ``kind``: ``(flat, packed)``, ``(flat, z)`` or ``(flat, z, val)``.
 
     The reference skips a point iff i >= W or j >= H or i < 0 or j < 0
     (src/lib.rs:789). NaN coordinates of escaped orbits fail all four tests,
@@ -73,35 +79,51 @@ def finish_emit(npix: int, width: int, height: int, fi, fj, z2, val):
     jj = torch.where(inb & ~torch.isnan(fj), fj, 0.0).to(torch.int32)
     flat = torch.where(inb, jj * width + ii, npix).to(torch.int32)
     z2 = torch.where(torch.isnan(z2), -math.inf, z2)
-    return flat, pack_zv(z2, val)
+    kind = kind.planes_kind()
+    if kind == BinStrategy.PACKED:
+        return flat, pack_zv(z2, val)
+    if kind == BinStrategy.DEPTH:
+        return flat, z2
+    return flat, z2, val
 
 
-def map_emit_plain(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = True):
+def _stream_dtypes(kind: BinStrategy) -> tuple:
+    kind = kind.planes_kind()
+    if kind == BinStrategy.PACKED:
+        return torch.int32, torch.int32
+    if kind == BinStrategy.DEPTH:
+        return torch.int32, torch.float32
+    return torch.int32, torch.float32, torch.float32
+
+
+def map_emit_plain(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = True,
+                   kind: BinStrategy = BinStrategy.PACKED):
     """Advance ``points`` (3, lanes) float32 by ``steps`` map steps, in place.
 
-    With ``emit`` returns the step-major ``(flat, packed)`` int32 streams of
-    ``steps * lanes`` points; without it (the warm-up) returns None.
+    With ``emit`` returns the step-major streams of ``steps * lanes``
+    points for the planes kind of ``kind`` (:func:`finish_emit`); without it
+    (the warm-up) returns None. A DEPTH stream skips the color transform.
     """
     cam = spec.cam
+    depth = kind.planes_kind() == BinStrategy.DEPTH
     x, y, z = points[0], points[1], points[2]
-    flats, packs = [], []
+    rows = []
     for _ in range(steps):
         nx, ny, nz = spec.attractor.step_xyz(x, y, z)
         if emit:
             sx, sy, sz = rotate_xyz(cam, nx, ny, nz)
             fi, fj, z2 = project(cam, sx, sy, sz, cam.cos_angle, cam.sin_angle)
-            val = spec.transform.xyz(nx - x, ny - y, nz - z, sx, sy, sz, spec.view)
-            f, p = finish_emit(spec.npix, cam.width, cam.height, fi, fj, z2, val)
-            flats.append(f)
-            packs.append(p)
+            val = None if depth else spec.transform.xyz(nx - x, ny - y, nz - z,
+                                                        sx, sy, sz, spec.view)
+            rows.append(finish_emit(spec.npix, cam.width, cam.height, fi, fj, z2, val, kind))
         x, y, z = nx, ny, nz
     points.copy_(torch.stack([x, y, z]))
     if not emit:
         return None
-    if not flats:
-        empty = torch.empty(0, dtype=torch.int32, device=points.device)
-        return empty, empty.clone()
-    return torch.cat(flats), torch.cat(packs)
+    if not rows:
+        return tuple(torch.empty(0, dtype=dt, device=points.device)
+                     for dt in _stream_dtypes(kind))
+    return tuple(torch.cat(s) for s in zip(*rows))
 
 
 def _kernel_params(spec: EmitSpec) -> cuda_lib.EmitParams:
@@ -130,12 +152,17 @@ def _kernel_params(spec: EmitSpec) -> cuda_lib.EmitParams:
     return p
 
 
-def map_emit(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = True):
+# the kernel's emission modes (csrc/map_emit.cu); 0 is the warm-up
+_MODES = {BinStrategy.PACKED: 1, BinStrategy.DEPTH: 2, BinStrategy.EXACT: 3}
+
+
+def map_emit(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = True,
+             kind: BinStrategy = BinStrategy.PACKED):
     """:func:`map_emit_plain`'s contract, through ``csrc/map_emit.cu`` for a
     CUDA tensor (one launch, counted in ``map_emit.launches``) and through
     :func:`map_emit_plain` for a CPU tensor."""
     if points.device.type == "cpu":
-        return map_emit_plain(spec, points, steps, emit=emit)
+        return map_emit_plain(spec, points, steps, emit=emit, kind=kind)
     cuda_lib.check_tensor(points, torch.float32, "points")
     if points.dim() != 2 or points.shape[0] != 3:
         raise ValueError(f"points must be (3, lanes), got {tuple(points.shape)}")
@@ -143,24 +170,14 @@ def map_emit(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = T
     n = steps * lanes
     if n >= 1 << 31:
         raise ValueError(f"{steps} steps x {lanes} lanes overflow the int32 stream index")
-    flat = packed = None
-    if emit:
-        flat = torch.empty(n, dtype=torch.int32, device=points.device)
-        packed = torch.empty(n, dtype=torch.int32, device=points.device)
-    if n == 0:
-        return (flat, packed) if emit else None
-    params = _kernel_params(spec)
-    lib = cuda_lib.library()
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = lib.sat_map_emit(
-            ctypes.c_void_p(points.data_ptr()), lanes, steps, int(emit), params,
-            ctypes.c_void_p(flat.data_ptr() if emit else 0),
-            ctypes.c_void_p(packed.data_ptr() if emit else 0),
-            ctypes.c_void_p(stream))
-    cuda_lib.check_launch(err, "map_emit")
-    map_emit.launches += 1
-    return (flat, packed) if emit else None
+    out = tuple(torch.empty(n, dtype=dt, device=points.device)
+                for dt in _stream_dtypes(kind)) if emit else ()
+    if n:
+        ptrs = [t.data_ptr() for t in out] + [0] * (3 - len(out))
+        cuda_lib.launch("sat_map_emit", points.device, points.data_ptr(), lanes, steps,
+                        _MODES[kind.planes_kind()] if emit else 0, _kernel_params(spec), *ptrs)
+        map_emit.launches += 1
+    return out if emit else None
 
 
 map_emit.launches = 0

@@ -1,25 +1,65 @@
-"""KERNEL-strategy binning (PyTorch port of the entry point
-``strange_attractor_tpu.ops.kernel_binning.bin_chunk_kernel``).
+"""Kernel-strategy binning (PyTorch port of the entry points of
+``strange_attractor_tpu.ops.kernel_binning``): KERNEL, DEPTH_KERNEL,
+EXACT_KERNEL and EXACT16_KERNEL.
 
-On the TPU that entry point runs a section sort and a Pallas row apply
+On the TPU each entry point runs a section sort and a Pallas row apply
 whose int8 one-hot matrix products dodge the scalar-scatter floor. Hopper
-has native atomics, so its kernel, ``csrc/bin_packed.cu``, adds and maxes
-straight into the planes: one thread per point. The planes come out
-bit-identical to :func:`ops.binning.bin_chunk_packed`, its plain twin,
-because add and max commute.
+has native atomics, so each Hopper kernel adds, maxes or mins straight into
+the planes, one thread per point:
 
-The TPU path's pixel-0 flood eviction is a TPU device and is not carried;
-on the GPU the flood is a hot-pixel atomic contention (ROADMAP).
+- ``csrc/bin_packed.cu`` (:func:`bin_chunk_kernel`): count and packed max;
+- ``csrc/bin_depth.cu`` (:func:`bin_chunk_kernel_depth`): the mono-u32 max
+  of the depth, in place on the float32 plane;
+- ``csrc/bin_exact.cu`` (:func:`bin_chunk_kernel_exact`) and
+  ``csrc/bin_exact16.cu`` (:func:`bin_chunk_kernel_exact16`): count, a
+  per-pixel u64 winner-key min in a scratch plane, then a per-pixel merge
+  into the EXACT planes that also resets the scratch.
+
+Every reduction commutes, so the planes come out deterministic and
+bit-identical to the plain twins in :mod:`ops.binning`. A wrapper runs its
+twin for CPU tensors and returns new planes; for CUDA tensors it launches
+its kernel on the current stream, updates the planes IN PLACE, returns
+them and adds one to its ``launches`` count. It raises when it cannot
+launch. The TPU path's pixel-0 flood eviction is not carried; on the GPU
+the flood is a hot-pixel atomic contention (ROADMAP B1).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import cuda_lib
-from .binning import bin_chunk_packed
+from .binning import bin_chunk_depth, bin_chunk_exact, bin_chunk_exact16, bin_chunk_packed
+
+
+def _check(npix: int, m: int, planes, stream) -> None:
+    """Raise unless the planes are (npix,) and the stream tensors (m,), all
+    contiguous 1-D tensors of the given dtypes on the first plane's card."""
+    device = planes[0][0].device
+    for group, size in ((planes, npix), (stream, m)):
+        for t, dtype, name in group:
+            cuda_lib.check_tensor(t, dtype, name)
+            if tuple(t.shape) != (size,):
+                raise ValueError(f"{name} must have shape ({size},), got {tuple(t.shape)}")
+            if t.device != device:
+                raise ValueError(f"{name} is on {t.device}, the planes on {device}")
+
+
+def new_scratch(npix: int, device) -> torch.Tensor:
+    """The (npix,) int64 winner-key plane of the EXACT and EXACT16 kernels,
+    all ones (empty). Each launch leaves it empty again, so a render
+    allocates one and hands it to every chunk."""
+    return torch.full((npix,), -1, dtype=torch.int64, device=device)
+
+
+def _scratch(npix: int, scratch, device) -> torch.Tensor:
+    if scratch is None:
+        return new_scratch(npix, device)
+    cuda_lib.check_tensor(scratch, torch.int64, "scratch")
+    if tuple(scratch.shape) != (npix,) or scratch.device != device:
+        raise ValueError(f"scratch must be ({npix},) on {device}, got "
+                         f"{tuple(scratch.shape)} on {scratch.device}")
+    return scratch
 
 
 def bin_chunk_kernel(count, packed, flat, packed_update):
@@ -28,38 +68,102 @@ def bin_chunk_kernel(count, packed, flat, packed_update):
     ``count``/``packed``: (npix,) int32 planes of u32 bits. ``flat``: (M,)
     int32 pixel indices, ``npix`` (or anything outside [0, npix)) marks an
     out-of-bounds point. ``packed_update``: (M,) int32 u32 bits of
-    :func:`ops.binning.pack_zv`.
-
-    For CUDA tensors this launches ``csrc/bin_packed.cu`` on the current
-    stream, updates ``count`` and ``packed`` IN PLACE and returns them
-    (counted in ``bin_chunk_kernel.launches``). For CPU tensors it returns
-    :func:`ops.binning.bin_chunk_packed`'s new planes.
+    :func:`ops.binning.pack_zv`. A CUDA launch runs ``csrc/bin_packed.cu``;
+    the CPU twin is :func:`ops.binning.bin_chunk_packed`.
     """
     if count.device.type == "cpu":
         return bin_chunk_packed(count, packed, flat, packed_update)
-    for t, name in ((count, "count"), (packed, "packed"), (flat, "flat"),
-                    (packed_update, "packed_update")):
-        cuda_lib.check_tensor(t, torch.int32, name)
-        if t.dim() != 1:
-            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
-        if t.device != count.device:
-            raise ValueError(f"{name} is on {t.device}, count on {count.device}")
     npix, m = count.shape[0], flat.shape[0]
-    if packed.shape[0] != npix or packed_update.shape[0] != m:
-        raise ValueError(f"shape mismatch: count {npix}, packed {packed.shape[0]}, "
-                         f"flat {m}, packed_update {packed_update.shape[0]}")
-    if m == 0:
-        return count, packed
-    lib = cuda_lib.library()
-    with torch.cuda.device(count.device):
-        stream = torch.cuda.current_stream(count.device).cuda_stream
-        err = lib.sat_bin_packed(
-            ctypes.c_void_p(count.data_ptr()), ctypes.c_void_p(packed.data_ptr()),
-            ctypes.c_void_p(flat.data_ptr()), ctypes.c_void_p(packed_update.data_ptr()),
-            m, npix, ctypes.c_void_p(stream))
-    cuda_lib.check_launch(err, "bin_packed")
-    bin_chunk_kernel.launches += 1
+    _check(npix, m, [(count, torch.int32, "count"), (packed, torch.int32, "packed")],
+           [(flat, torch.int32, "flat"), (packed_update, torch.int32, "packed_update")])
+    if m:
+        cuda_lib.launch("sat_bin_packed", count.device, count.data_ptr(), packed.data_ptr(),
+                        flat.data_ptr(), packed_update.data_ptr(), m, npix)
+        bin_chunk_kernel.launches += 1
     return count, packed
 
 
+def bin_chunk_kernel_depth(zbuf, flat, z):
+    """Accumulate one point chunk into the DEPTH plane: the per-pixel max
+    depth in mono-u32 order, the stream's zeros as +0.0.
+
+    ``zbuf``: (npix,) float32 plane with the -1.0 sentinel. ``flat``: (M,)
+    int32 pixel indices (``npix`` = out of bounds); ``z``: (M,) float32.
+    Returns ``(zbuf,)``. A CUDA launch runs ``csrc/bin_depth.cu``; the CPU
+    twin is :func:`ops.binning.bin_chunk_depth`.
+    """
+    if zbuf.device.type == "cpu":
+        return bin_chunk_depth(zbuf, flat, z)
+    npix, m = zbuf.shape[0], flat.shape[0]
+    _check(npix, m, [(zbuf, torch.float32, "zbuf")],
+           [(flat, torch.int32, "flat"), (z, torch.float32, "z")])
+    if m:
+        cuda_lib.launch("sat_bin_depth", zbuf.device, zbuf.data_ptr(), flat.data_ptr(),
+                        z.data_ptr(), m, npix)
+        bin_chunk_kernel_depth.launches += 1
+    return (zbuf,)
+
+
+def _exact_check(count, steps, zbuf, flat, z, val):
+    npix, m = count.shape[0], flat.shape[0]
+    if m >= 1 << 31:  # the winner keys hold a 31-bit stream index
+        raise ValueError(f"a chunk holds fewer than 2^31 points, got {m}")
+    _check(npix, m, [(count, torch.int32, "count"), (steps, torch.float32, "steps"),
+                     (zbuf, torch.float32, "zbuf")],
+           [(flat, torch.int32, "flat"), (z, torch.float32, "z"),
+            (val, torch.float32, "val")])
+    return npix, m
+
+
+def bin_chunk_kernel_exact(count, steps, zbuf, flat, z, val, *, scratch=None):
+    """Accumulate one point chunk into EXACT planes with EXACT_KERNEL's
+    semantics (see :func:`ops.binning.bin_chunk_exact`, its CPU twin):
+    full float32 z and value, the strict z-test, the earliest point on an
+    equal (pixel, z) pair inside the chunk.
+
+    ``count`` (int32 u32 bits), ``steps``, ``zbuf`` (float32): (npix,)
+    planes. ``flat`` (int32), ``z``, ``val`` (float32): the (M,) stream.
+    ``scratch``: a :func:`new_scratch` plane to reuse (one is allocated if
+    None). A CUDA launch runs ``csrc/bin_exact.cu``.
+    """
+    if count.device.type == "cpu":
+        return bin_chunk_exact(count, steps, zbuf, flat, z, val)
+    npix, m = _exact_check(count, steps, zbuf, flat, z, val)
+    if m:
+        key = _scratch(npix, scratch, count.device)
+        cuda_lib.launch("sat_bin_exact", count.device, count.data_ptr(), steps.data_ptr(),
+                        zbuf.data_ptr(), key.data_ptr(), flat.data_ptr(), z.data_ptr(),
+                        val.data_ptr(), m, npix)
+        bin_chunk_kernel_exact.launches += 1
+    return count, steps, zbuf
+
+
+def bin_chunk_kernel_exact16(count, steps, zbuf, flat, z, val, *, ties: str = "value",
+                             scratch=None):
+    """Accumulate one point chunk into EXACT planes with EXACT16_KERNEL's
+    contract (see :func:`ops.binning.bin_chunk_exact16`, its CPU twin): z
+    at 16-bit bucket granularity, the value through float16, bucket ties by
+    the smallest float16 value (``ties="value"``) or the earliest point
+    (``ties="earliest"``).
+
+    Arguments as :func:`bin_chunk_kernel_exact`. A CUDA launch runs
+    ``csrc/bin_exact16.cu``.
+    """
+    if ties not in ("value", "earliest"):
+        raise ValueError(f"ties must be 'value' or 'earliest', got {ties!r}")
+    if count.device.type == "cpu":
+        return bin_chunk_exact16(count, steps, zbuf, flat, z, val, ties)
+    npix, m = _exact_check(count, steps, zbuf, flat, z, val)
+    if m:
+        key = _scratch(npix, scratch, count.device)
+        cuda_lib.launch("sat_bin_exact16", count.device, count.data_ptr(), steps.data_ptr(),
+                        zbuf.data_ptr(), key.data_ptr(), flat.data_ptr(), z.data_ptr(),
+                        val.data_ptr(), m, npix, int(ties == "earliest"))
+        bin_chunk_kernel_exact16.launches += 1
+    return count, steps, zbuf
+
+
 bin_chunk_kernel.launches = 0
+bin_chunk_kernel_depth.launches = 0
+bin_chunk_kernel_exact.launches = 0
+bin_chunk_kernel_exact16.launches = 0

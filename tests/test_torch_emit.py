@@ -48,21 +48,23 @@ def _assert_same_floats(got: np.ndarray, want: np.ndarray):
     np.testing.assert_array_equal(got.view(np.uint32)[~nan], want.view(np.uint32)[~nan])
 
 
-def _jax_steps(jcfg, pts: np.ndarray, steps: int, angle: float):
-    """``steps`` chained eager JAX ``_step_fn`` steps -> (flat, packed, pts)."""
+def _jax_steps(jcfg, pts: np.ndarray, steps: int, angle: float,
+               strategy: BinStrategy = BinStrategy.PACKED):
+    """``steps`` chained eager JAX ``_step_fn`` steps -> (*streams, pts):
+    (flat, packed) for PACKED, (flat, z) for DEPTH, (flat, z, val) for
+    EXACT planes."""
     cam = jcamera_params(jcfg.view, 0.0, jcfg.width, jcfg.height)
-    step = _step_fn(jcfg, cam, BinStrategy.PACKED)
+    step = _step_fn(jcfg, cam, strategy)
     x, y, z = (jnp.asarray(pts[k]) for k in range(3))
     carry = (x, y, z, x, y, z, jnp.zeros(pts.shape[1], jnp.int32),
              jnp.float32(np.cos(angle)), jnp.float32(np.sin(angle)))
-    flats, packs = [], []
+    rows = []
     with jax.disable_jit():
         for _ in range(steps):
-            carry, (flat, packed) = step(carry, None)
-            flats.append(np.asarray(flat))
-            packs.append(np.asarray(packed))
+            carry, emitted = step(carry, None)
+            rows.append([np.asarray(e) for e in emitted])
     out = np.stack([np.asarray(c) for c in carry[:3]])
-    return np.concatenate(flats), np.concatenate(packs), out
+    return (*(np.concatenate(s) for s in zip(*rows)), out)
 
 
 @pytest.mark.parametrize("preset,size,angle", [

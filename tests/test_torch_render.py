@@ -177,9 +177,17 @@ def test_cuda_render_refuses_to_fall_back():
 @pytest.mark.parametrize("kw", [{"render": sat.RenderKind.DEPTH}, {"reseed_lanes": True},
                                 {"bin_strategy": sat.BinStrategy.EXACT}])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        sat.render(sat.presets.poisson_saturne(width=8, height=8, iterations=64, **kw),
-                   device="cpu")
+    """reseed_lanes is still unported and raises. The Depth render and the
+    EXACT strategy, ported since, render on the CPU into their own planes."""
+    cfg = sat.presets.poisson_saturne(width=8, height=8, iterations=64, warmup=10, seed=1,
+                                      **kw)
+    if cfg.reseed_lanes:
+        with pytest.raises(NotImplementedError):
+            sat.render(cfg, device="cpu")
+        return
+    state = sat.render(cfg, device="cpu")
+    assert state.strategy == cfg.resolved_bin_strategy().planes_kind() != sat.BinStrategy.PACKED
+    assert sat.colorize(cfg, state).shape == (8, 8, 4)
 
 
 def test_cli_single_frame_on_cpu(tmp_path, capsys):
@@ -193,7 +201,7 @@ def test_cli_single_frame_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["sequence", "-s", "0", "-e", "3"], ["completion"],
-                                  ["--depth"], ["--bmp"]])
+                                  ["doctor"], ["--bmp"]])
 def test_cli_unported_paths_exit_with_error(argv, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
