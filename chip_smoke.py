@@ -42,7 +42,26 @@ all passed):
 9. the same seeded 1e6 renders through the kernels and through the plain
    twins: DEPTH_KERNEL against DEPTH, EXACT_KERNEL against EXACT,
    EXACT16_KERNEL against its twin route in both tie modes; identical
-   planes and PNG bytes.
+   planes and PNG bytes;
+10. kernel A's shared-orbit modes (csrc/map_emit.cu) and the per-frame
+    projection (csrc/project_emit.cu) against their plain twins at 32768
+    lanes, warm-up + 2 chunks of 128 steps, poisson-saturne and solar-sail,
+    angles 0, 97.3 and 222.5 degrees, PACKED, DEPTH and EXACT kinds: the
+    invariant streams, the lane state and every frame stream bit-identical,
+    and every frame stream equal to the fused kernel A stream at its angle;
+    then one chunk at the rotation cell's shape (2048 lanes x 1628 steps),
+    and both kernels timed there against their twins;
+11. seeded 1e6 sequences of 8 frames at 1920x1080 through the shared-orbit
+    engine for KERNEL, DEPTH_KERNEL, EXACT_KERNEL and EXACT16_KERNEL (both
+    tie modes): every frame's planes bit-identical to render_seeds of the
+    batch's seeds at its angle, on the kernel route and on the plain-twin
+    route, and every delivered 8-bit frame equal to that render's;
+12. the rotation cell: poisson-saturne 1920x1080 Gas, 8-bit, seed 1, 120
+    frames over 0-360 degrees at 1e7 iterations a frame, through
+    render_sequence_shared (auto batch) and render_sequence_batched, each
+    with every launch count set to 0 just before it and read after; frames
+    per second of render + colorize + convert + host copy, the device idle
+    share of one traced batch of each engine, two frames encoded to PNG.
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -50,6 +69,7 @@ It imports no JAX. It needs one card and exits non-zero without one.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -208,9 +228,23 @@ def _counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
     from strange_attractor_tpu_torch.ops import emit, kernel_binning as kb
 
-    return {"map_emit": emit.map_emit, "bin_packed": kb.bin_chunk_kernel,
-            "bin_depth": kb.bin_chunk_kernel_depth, "bin_exact": kb.bin_chunk_kernel_exact,
-            "bin_exact16": kb.bin_chunk_kernel_exact16}
+    return {"map_emit": emit.map_emit, "project_emit": emit.project_emit,
+            "bin_packed": kb.bin_chunk_kernel, "bin_depth": kb.bin_chunk_kernel_depth,
+            "bin_exact": kb.bin_chunk_kernel_exact, "bin_exact16": kb.bin_chunk_kernel_exact16}
+
+
+def _zero_counters() -> dict:
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _require_launches(tag: str, counters: dict, kernels: tuple) -> dict:
+    launches = {name: counters[name].launches for name in kernels}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"{tag}: the run did not go through every kernel: {launches}")
+    return launches
 
 
 def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -> dict:
@@ -221,9 +255,7 @@ def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -
 
     lanes, chunk, nchunks = sat.plan_schedule(cfg)
     executed = lanes * chunk * nchunks
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = _zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = sat.render(cfg, device=dev)
@@ -231,9 +263,7 @@ def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -
     t_render = time.perf_counter() - t0
     path, img = _deliver(sat, cfg, state, out_base)
     wall = time.perf_counter() - t0
-    launches = {name: counters[name].launches for name in kernels}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"{tag}: the render did not go through every kernel: {launches}")
+    launches = _require_launches(tag, counters, kernels)
     if state.count is not None:
         total = int(u32(state.count).sum())
         if not 0 < total <= executed:
@@ -459,6 +489,188 @@ def phase_path_twins(sat, dev, out_dir: Path) -> None:
 
 
 
+def _check_streams(tag: str, got, want) -> float:
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} streams, want {len(want)}")
+    return max(_check_equal(f"{tag} stream {i}", g, w) for i, (g, w) in enumerate(zip(got, want)))
+
+
+# the rotation cell's schedule: 1e7 iterations a frame (plan_schedule)
+SEQ_LANES, SEQ_CHUNK = 2048, 1628
+
+
+def phase_shared_emit(sat, dev) -> dict:
+    from strange_attractor_tpu_torch.ops import emit
+
+    B = sat.BinStrategy
+    err = 0.0
+    rng = np.random.default_rng(4)
+    angles = (0.0, math.radians(97.3), math.radians(222.5))
+    for preset in ("poisson-saturne", "solar-sail"):
+        cfg = sat.presets.by_name(preset, width=W, height=H)
+        spec0 = emit.emit_spec(cfg, 0.0)
+        specs = [emit.emit_spec(cfg, a) for a in angles]
+        warm = torch.from_numpy((rng.random((3, LANES)) * 0.1).astype(np.float32)).to(dev)
+        emit.map_emit(spec0, warm, cfg.warmup, emit=False)
+        for kind in (B.PACKED, B.DEPTH, B.EXACT):
+            pk, pp = warm.clone(), warm.clone()
+            fused = [warm.clone() for _ in angles]
+            for c in range(2):
+                tag = f"[10] {preset} {kind.value} chunk {c}"
+                sk = emit.map_emit_shared(spec0, pk, CHUNK, kind=kind)
+                sp = emit.map_emit_shared_plain(spec0, pp, CHUNK, kind=kind)
+                err = max(err, _check_streams(f"{tag} shared", sk, sp),
+                          _check_equal(f"{tag} state", pk, pp))
+                for a, spec, pf in zip(angles, specs, fused):
+                    fk = emit.project_emit(spec, sk, kind=kind)
+                    err = max(err, _check_streams(f"{tag} frame {a:.4f}", fk,
+                                                  emit.project_emit_plain(spec, sp, kind=kind)),
+                              _check_streams(f"{tag} frame {a:.4f} vs fused", fk,
+                                             emit.map_emit(spec, pf, CHUNK, kind=kind)))
+            print(f"[10] {preset}: {kind.value} shared emission + 3 frames, 2 x {CHUNK} steps "
+                  f"at {LANES} lanes bit-identical to the twins and to the fused kernel")
+    # the rotation cell's chunk: 2048 lanes x 1628 steps, 3,334,144 points
+    cfg = sat.presets.poisson_saturne(width=W, height=H)
+    spec0, spec = emit.emit_spec(cfg, 0.0), emit.emit_spec(cfg, angles[2])
+    pts = torch.from_numpy((rng.random((3, SEQ_LANES)) * 0.1).astype(np.float32)).to(dev)
+    emit.map_emit(spec0, pts, cfg.warmup, emit=False)
+    pk, pp, pf = pts.clone(), pts.clone(), pts.clone()
+    sk = emit.map_emit_shared(spec0, pk, SEQ_CHUNK)
+    sp = emit.map_emit_shared_plain(spec0, pp, SEQ_CHUNK)
+    fk = emit.project_emit(spec, sk)
+    err = max(err, _check_streams("[10] cell chunk shared", sk, sp),
+              _check_equal("[10] cell chunk state", pk, pp),
+              _check_streams("[10] cell chunk frame", fk, emit.project_emit_plain(spec, sp)),
+              _check_streams("[10] cell chunk frame vs fused", fk, emit.map_emit(spec, pf,
+                                                                                  SEQ_CHUNK)))
+    ms = {"shared": _time_ms(lambda: emit.map_emit_shared(spec0, pts, SEQ_CHUNK), reps=10),
+          "shared_plain": _time_ms(lambda: emit.map_emit_shared_plain(spec0, pts, SEQ_CHUNK),
+                                   reps=1, warm=0),
+          "project": _time_ms(lambda: emit.project_emit(spec, sk), reps=50),
+          "project_plain": _time_ms(lambda: emit.project_emit_plain(spec, sk), reps=10, warm=1)}
+    print(f"[10] cell chunk {SEQ_LANES} lanes x {SEQ_CHUNK} steps bit-identical; kernel A shared "
+          f"{ms['shared']:.4f} ms, plain {ms['shared_plain']:.4f} ms; project_emit "
+          f"{ms['project']:.4f} ms, plain {ms['project_plain']:.4f} ms")
+    return {"err": err, "ms": ms}
+
+
+SEQ_ANGLES = (0.0, 45.0, 90.0, 135.0, 180.0, 222.5, 270.0, 315.0)
+
+
+def phase_sequence_twins(sat, dev) -> None:
+    from strange_attractor_tpu_torch.ops import emit
+    from strange_attractor_tpu_torch.render import frame_generator
+    from strange_attractor_tpu_torch.utils.export import convert_format_device, to_host
+
+    B = sat.BinStrategy
+    rad = np.radians(SEQ_ANGLES)
+    for label, kw in (("KERNEL", {}), ("DEPTH_KERNEL", dict(render=sat.RenderKind.DEPTH)),
+                      ("EXACT_KERNEL", dict(bin_strategy=B.EXACT_KERNEL)),
+                      ("EXACT16_KERNEL value", dict(bin_strategy=B.EXACT16_KERNEL)),
+                      ("EXACT16_KERNEL earliest", dict(bin_strategy=B.EXACT16_KERNEL,
+                                                       exact16_ties="earliest"))):
+        cfg = _flagship(sat, 1_000_000, **kw)
+        seeds = emit.seed_points(sat.plan_schedule(cfg)[0], frame_generator(cfg, 0)).to(dev)
+        kern = sat.render_seeds_shared(cfg, seeds, rad)
+        plain = sat.render_seeds_shared(cfg, seeds, rad, plain=True)
+        frames = sat.render_sequence_shared(cfg, SEQ_ANGLES, transparent=False, eight_bit=True,
+                                            device=dev)
+        for f, a in enumerate(rad):
+            single = sat.render_seeds(cfg, seeds, angle=float(a))
+            for name, w in single._asdict().items():
+                if w is not None:
+                    _check_equal(f"[11] {label} frame {f} {name} (kernels)",
+                                 getattr(kern[f], name), w)
+                    _check_equal(f"[11] {label} frame {f} {name} (plain twins)",
+                                 getattr(plain[f], name), w)
+            want = to_host(convert_format_device(sat.colorize(cfg, single), False, True))
+            if not np.array_equal(frames[f], want):
+                raise AssertionError(f"[11] {label}: delivered frame {f} differs from its render")
+        print(f"[11] 1e6 shared sequence {label}: {len(rad)} frames bit-identical to render_seeds "
+              f"on the kernel and the plain-twin route")
+
+
+def _idle_share(fn) -> tuple:
+    """(device busy ms, traced wall ms) of ``fn`` under torch.profiler: the
+    union of the device's activity intervals against the host's
+    synchronized wall. None when the trace holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, wall
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    return (busy + hi - lo) / 1e3, wall
+
+
+def phase_sequence_cell(sat, dev, out_dir: Path, card: str) -> dict:
+    from strange_attractor_tpu_torch.render import _auto_frames_per_batch
+    from strange_attractor_tpu_torch.utils.export import write_image
+    from strange_attractor_tpu_torch.utils.sequencing import angle_iter
+
+    cfg = _flagship(sat, 10_000_000)
+    angles = list(angle_iter(0.0, 360.0, 3.0))
+    lanes, chunk, nchunks = sat.plan_schedule(cfg)
+    if (lanes, chunk) != (SEQ_LANES, SEQ_CHUNK):
+        raise AssertionError(f"[12] schedule {lanes} x {chunk}, phase 10 timed "
+                             f"{SEQ_LANES} x {SEQ_CHUNK}")
+    runs, out = {}, {}
+    engines = (("shared", sat.render_sequence_shared, ("map_emit", "project_emit", "bin_packed")),
+               ("per-frame", sat.render_sequence_batched, ("map_emit", "bin_packed")))
+    for name, engine, kernels in engines:
+        for rep in range(2):
+            counters = _zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = engine(cfg, angles, transparent=False, eight_bit=True, device=dev)
+            wall = time.perf_counter() - t0
+            launches = _require_launches(f"[12] {name}", counters, kernels)
+            if frames.shape != (len(angles), H, W, 3) or frames.dtype != np.uint8:
+                raise AssertionError(f"[12] {name}: frames {frames.shape} {frames.dtype}")
+            print(f"[12] {name} orbit: {len(angles)} frames x {cfg.iterations:.0e} iterations "
+                  f"({lanes} lanes x {chunk} steps x {nchunks} chunks) in {wall:.4f} s = "
+                  f"{len(angles) / wall:.4f} frames/s (render + colorize + convert + host copy), "
+                  f"launches {launches}, rep {rep} on {card}")
+            runs.setdefault(name, []).append({"s": wall, "frames_per_s": len(angles) / wall,
+                                              "launches": launches})
+        out[name] = frames
+    # the first frame of each shared batch draws the per-frame engine's seeds
+    batch = _auto_frames_per_batch(cfg, cfg.resolved_bin_strategy())
+    for f in range(0, len(angles), batch):
+        if not np.array_equal(out["shared"][f], out["per-frame"][f]):
+            raise AssertionError(f"[12] frame {f} differs between the shared and per-frame "
+                                 f"engines")
+    for name, engine, _ in engines:
+        busy, wall = _idle_share(lambda: engine(cfg, angles[:batch], transparent=False,
+                                                eight_bit=True, device=dev))
+        idle = "not measured (no device activity in the trace)" if busy is None else \
+            f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.4f}"
+        print(f"[12] {name} orbit, one traced batch of {batch} frames: wall {wall:.2f} ms, {idle}")
+        runs[name + "_trace"] = {"busy_ms": busy, "wall_ms": wall}
+    # two frames to PNG: encoding all 120 would take the host tens of seconds
+    for f in (0, len(angles) // 2):
+        img = out["shared"][f]
+        lit = float((img.max(axis=-1) > 0).mean())
+        if not lit > 0.10:
+            raise AssertionError(f"[12] shared frame {f} nearly blank: lit fraction {lit}")
+        path = write_image(out_dir / f"seq_{f}", img, transparent=False, eight_bit=True)
+        print(f"[12] shared frame {f} at {angles[f]} degrees: lit {lit:.3f}, "
+              f"{path.stat().st_size} bytes")
+    return runs
+
+
 _SOURCE = "strange_attractor_tpu_torch/csrc/"
 _TPU = "strange_attractor_tpu/ops/kernel_binning.py:"
 # kernel row -> (source, replaces, path run that reports its launches)
@@ -495,13 +707,17 @@ def main() -> int:
         bins = phase_bins(sat, dev, a)
         runs = phase_paths(sat, dev, Path(tmp), card)
         phase_path_twins(sat, dev, Path(tmp))
+        shared = phase_shared_emit(sat, dev)
+        phase_sequence_twins(sat, dev)
+        seq = phase_sequence_cell(sat, dev, Path(tmp), card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
         {"name": "map_emit", "route": "cuda",
          "source": "strange_attractor_tpu_torch/csrc/map_emit.cu",
          "replaces": "strange_attractor_tpu/render.py:410",
-         "launches": s["launches"]["map_emit"], "max_abs_err": max(a["err"], modes["err"]),
+         "launches": s["launches"]["map_emit"],
+         "max_abs_err": max(a["err"], modes["err"], shared["err"]),
          "ms": a["ms"], "plain_ms": a["plain_ms"]},
         {"name": "bin_packed", "route": "cuda",
          "source": "strange_attractor_tpu_torch/csrc/bin_packed.cu",
@@ -514,6 +730,11 @@ def main() -> int:
                         "replaces": replaces, "launches": runs[name]["launches"][counter],
                         "max_abs_err": bins[name]["err"], "ms": bins[name]["ms"],
                         "plain_ms": bins[name]["plain_ms"]})
+    kernels.append({"name": "project_emit", "route": "cuda", "source": _SOURCE + "project_emit.cu",
+                    "replaces": "strange_attractor_tpu/render.py:246",
+                    "launches": seq["shared"][-1]["launches"]["project_emit"],
+                    "max_abs_err": shared["err"], "ms": shared["ms"]["project"],
+                    "plain_ms": shared["ms"]["project_plain"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

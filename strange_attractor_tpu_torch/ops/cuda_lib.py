@@ -29,14 +29,16 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("map_emit.cu", "bin_packed.cu", "bin_depth.cu", "bin_exact.cu", "bin_exact16.cu")
+SOURCES = ("map_emit.cu", "project_emit.cu", "bin_packed.cu", "bin_depth.cu", "bin_exact.cu",
+           "bin_exact16.cu")
+HEADERS = ("emit_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 
 class EmitParams(ctypes.Structure):
-    """Mirror of ``struct EmitParams`` in ``csrc/map_emit.cu``."""
+    """Mirror of ``struct EmitParams`` in ``csrc/emit_common.cuh``."""
 
     _fields_ = [
         ("coef", ctypes.c_float * 30),
@@ -51,6 +53,9 @@ class EmitParams(ctypes.Structure):
 
 
 _LIB: dict = {}
+# device index -> compute capability, asked once per device instead of on
+# every launch
+_CAPABILITY: dict = {}
 
 
 def _nvcc() -> str:
@@ -67,7 +72,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(repr(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode() + (CSRC / name).read_bytes())
     return BUILD_DIR / f"libsat_torch_{h.hexdigest()[:16]}.so"
 
@@ -114,7 +119,8 @@ def library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # every entry point ends with the stream and returns cudaGetLastError()
     argtypes = {
-        "sat_map_emit": [vp, i32, i32, i32, EmitParams, vp, vp, vp],
+        "sat_map_emit": [vp, i32, i32, i32, EmitParams, vp, vp, vp, vp],
+        "sat_project_emit": [i64, i32, EmitParams, vp, vp, vp, vp, vp, vp],
         "sat_bin_packed": [vp, vp, vp, vp, i64, i32],
         "sat_bin_depth": [vp, vp, vp, i64, i32],
         "sat_bin_exact": [vp, vp, vp, vp, vp, vp, vp, i64, i32],
@@ -147,7 +153,9 @@ def check_tensor(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    cap = torch.cuda.get_device_capability(t.device)
+    cap = _CAPABILITY.get(t.device.index)  # a tensor's CUDA device has its index
+    if cap is None:
+        cap = _CAPABILITY[t.device.index] = torch.cuda.get_device_capability(t.device)
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a (Hopper); "
                            f"{torch.cuda.get_device_name(t.device)} is sm_{cap[0]}{cap[1]}")

@@ -18,6 +18,17 @@ The stream depends on the planes kind of the bin strategy, as in
 ``(flat, z)`` and EXACT ``(flat, z, val)``, with full float32 ``z`` and
 ``val``; a NaN ``z`` becomes -inf in every kind.
 
+A rotation sequence that bins one orbit at every frame splits the step in
+two (the JAX package's ``_step_fn_shared`` + ``_project_emit``,
+render.py:199-266): :func:`map_emit_shared` (``csrc/map_emit.cu``'s shared
+modes) advances the lanes and emits the frame-invariant stream ``(xc, zc,
+fj, val)`` -- ``(xc, zc, fj)`` for DEPTH -- once per chunk, and
+:func:`project_emit` (``csrc/project_emit.cu``) turns it into one frame's
+``(flat, payload...)`` stream; both have plain twins
+(:func:`map_emit_shared_plain`, :func:`project_emit_plain`). The two halves
+are :func:`ops.projection.project`'s own, so a frame's stream is
+bit-identical to :func:`map_emit`'s at that angle.
+
 Lane state is a (3, lanes) float32 tensor of the current points, updated in
 place. The JAX package also carries the previous point, but at every chunk
 boundary it equals the current one (the carry sets both to the new point,
@@ -29,6 +40,7 @@ lane`` -- JAX's ``emitted.reshape(-1)`` order.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -38,7 +50,8 @@ from ..models.attractors import PolynomialSprott2Degree
 from ..models.transforms import AdjustedVelocity, PoissonSaturneTransform
 from . import cuda_lib
 from .binning import pack_zv
-from .projection import CameraParams, camera_params, f32, project, rotate_xyz
+from .projection import (CameraParams, angle_half, camera_params, f32, project, rotate_xyz,
+                         shared_operands)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +66,12 @@ class EmitSpec:
     @property
     def npix(self) -> int:
         return self.cam.width * self.cam.height
+
+    @functools.cached_property
+    def params(self) -> cuda_lib.EmitParams:
+        """The kernels' launch constants, built once per spec: a render
+        launches with one spec per chunk, a sequence with one per frame."""
+        return _kernel_params(self)
 
 
 def emit_spec(config: Config, angle: float) -> EmitSpec:
@@ -126,6 +145,63 @@ def map_emit_plain(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bo
     return tuple(torch.cat(s) for s in zip(*rows))
 
 
+def _shared_dtypes(kind: BinStrategy) -> tuple:
+    return (torch.float32,) * (3 if kind.planes_kind() == BinStrategy.DEPTH else 4)
+
+
+def map_emit_shared_plain(spec: EmitSpec, points: torch.Tensor, steps: int, *,
+                          kind: BinStrategy = BinStrategy.PACKED):
+    """Advance ``points`` (3, lanes) float32 by ``steps`` map steps, in
+    place, and return the step-major frame-invariant streams of ``steps *
+    lanes`` points: ``(xc, zc, fj, val)``, or ``(xc, zc, fj)`` for a DEPTH
+    planes kind (:func:`ops.projection.shared_operands`; ``val`` is the
+    color transform). The counterpart of the JAX package's
+    ``_step_fn_shared`` (render.py:199-243). The camera angle of ``spec``
+    is not read.
+    """
+    cam = spec.cam
+    depth = kind.planes_kind() == BinStrategy.DEPTH
+    x, y, z = points[0], points[1], points[2]
+    rows = []
+    for _ in range(steps):
+        nx, ny, nz = spec.attractor.step_xyz(x, y, z)
+        sx, sy, sz = rotate_xyz(cam, nx, ny, nz)
+        row = list(shared_operands(cam, sx, sy, sz))
+        if not depth:
+            row.append(spec.transform.xyz(nx - x, ny - y, nz - z, sx, sy, sz, spec.view))
+        rows.append(row)
+        x, y, z = nx, ny, nz
+    points.copy_(torch.stack([x, y, z]))
+    if not rows:
+        return tuple(torch.empty(0, dtype=dt, device=points.device)
+                     for dt in _shared_dtypes(kind))
+    return tuple(torch.cat(s) for s in zip(*rows))
+
+
+def _check_shared_stream(stream, kind: BinStrategy) -> None:
+    want = len(_shared_dtypes(kind))
+    if len(stream) != want:
+        raise ValueError(f"{kind.planes_kind().value} planes take {want} shared streams "
+                         f"(xc, zc, fj[, val]), got {len(stream)}")
+
+
+def project_emit_plain(spec: EmitSpec, stream, *, kind: BinStrategy = BinStrategy.PACKED):
+    """One frame's stream from the shared stream ``(xc, zc, fj[, val])`` of
+    :func:`map_emit_shared_plain`, at ``spec``'s camera angle: the
+    angle-dependent math (:func:`ops.projection.angle_half`), then
+    :func:`finish_emit`. Returns ``(flat, packed)``, ``(flat, z)`` or
+    ``(flat, z, val)`` for the planes kind of ``kind``, bit-identical to
+    :func:`map_emit_plain`'s stream of the same orbit at that angle. The
+    counterpart of the JAX package's ``_project_emit`` (render.py:246-266).
+    """
+    _check_shared_stream(stream, kind)
+    cam = spec.cam
+    xc, zc, fj = stream[:3]
+    val = stream[3] if len(stream) == 4 else None
+    fi, z2 = angle_half(cam, xc, zc, cam.cos_angle, cam.sin_angle)
+    return finish_emit(spec.npix, cam.width, cam.height, fi, fj, z2, val, kind)
+
+
 def _kernel_params(spec: EmitSpec) -> cuda_lib.EmitParams:
     """Host-side float32 constants, each rounded once from float64 exactly
     as the plain twin rounds them."""
@@ -152,8 +228,31 @@ def _kernel_params(spec: EmitSpec) -> cuda_lib.EmitParams:
     return p
 
 
-# the kernel's emission modes (csrc/map_emit.cu); 0 is the warm-up
+# the kernel's emission modes (csrc/map_emit.cu); 0 is the warm-up. The
+# fused modes' numbers are project_emit.cu's too.
 _MODES = {BinStrategy.PACKED: 1, BinStrategy.DEPTH: 2, BinStrategy.EXACT: 3}
+_SHARED_MODES = {BinStrategy.PACKED: 4, BinStrategy.EXACT: 4, BinStrategy.DEPTH: 5}
+
+
+def _launch_map_emit(spec: EmitSpec, points: torch.Tensor, steps: int, mode: int,
+                     dtypes: tuple) -> tuple:
+    """Check ``points``, allocate the ``steps * lanes`` streams of
+    ``dtypes`` and launch ``csrc/map_emit.cu`` in ``mode`` (counted in
+    ``map_emit.launches``)."""
+    cuda_lib.check_tensor(points, torch.float32, "points")
+    if points.dim() != 2 or points.shape[0] != 3:
+        raise ValueError(f"points must be (3, lanes), got {tuple(points.shape)}")
+    lanes = points.shape[1]
+    n = steps * lanes
+    if n >= 1 << 31:
+        raise ValueError(f"{steps} steps x {lanes} lanes overflow the int32 stream index")
+    out = tuple(torch.empty(n, dtype=dt, device=points.device) for dt in dtypes)
+    if n:
+        ptrs = [t.data_ptr() for t in out] + [0] * (4 - len(out))
+        cuda_lib.launch("sat_map_emit", points.device, points.data_ptr(), lanes, steps, mode,
+                        spec.params, *ptrs)
+        map_emit.launches += 1
+    return out
 
 
 def map_emit(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = True,
@@ -163,24 +262,54 @@ def map_emit(spec: EmitSpec, points: torch.Tensor, steps: int, *, emit: bool = T
     :func:`map_emit_plain` for a CPU tensor."""
     if points.device.type == "cpu":
         return map_emit_plain(spec, points, steps, emit=emit, kind=kind)
-    cuda_lib.check_tensor(points, torch.float32, "points")
-    if points.dim() != 2 or points.shape[0] != 3:
-        raise ValueError(f"points must be (3, lanes), got {tuple(points.shape)}")
-    lanes = points.shape[1]
-    n = steps * lanes
-    if n >= 1 << 31:
-        raise ValueError(f"{steps} steps x {lanes} lanes overflow the int32 stream index")
-    out = tuple(torch.empty(n, dtype=dt, device=points.device)
-                for dt in _stream_dtypes(kind)) if emit else ()
-    if n:
-        ptrs = [t.data_ptr() for t in out] + [0] * (3 - len(out))
-        cuda_lib.launch("sat_map_emit", points.device, points.data_ptr(), lanes, steps,
-                        _MODES[kind.planes_kind()] if emit else 0, _kernel_params(spec), *ptrs)
-        map_emit.launches += 1
-    return out if emit else None
+    if not emit:
+        _launch_map_emit(spec, points, steps, 0, ())
+        return None
+    return _launch_map_emit(spec, points, steps, _MODES[kind.planes_kind()],
+                            _stream_dtypes(kind))
 
 
 map_emit.launches = 0
+
+
+def map_emit_shared(spec: EmitSpec, points: torch.Tensor, steps: int, *,
+                    kind: BinStrategy = BinStrategy.PACKED):
+    """:func:`map_emit_shared_plain`'s contract, through the shared modes of
+    ``csrc/map_emit.cu`` for a CUDA tensor (one launch, counted in
+    ``map_emit.launches``) and through the twin for a CPU tensor."""
+    if points.device.type == "cpu":
+        return map_emit_shared_plain(spec, points, steps, kind=kind)
+    return _launch_map_emit(spec, points, steps, _SHARED_MODES[kind.planes_kind()],
+                            _shared_dtypes(kind))
+
+
+def project_emit(spec: EmitSpec, stream, *, kind: BinStrategy = BinStrategy.PACKED):
+    """:func:`project_emit_plain`'s contract, through
+    ``csrc/project_emit.cu`` for CUDA tensors (one launch, counted in
+    ``project_emit.launches``) and through the twin for CPU tensors. An
+    EXACT frame hands the shared ``val`` tensor on as its value stream."""
+    if stream[0].device.type == "cpu":
+        return project_emit_plain(spec, stream, kind=kind)
+    _check_shared_stream(stream, kind)
+    kind = kind.planes_kind()
+    n = stream[0].shape[0]
+    for t, name in zip(stream, ("xc", "zc", "fj", "val")):
+        cuda_lib.check_tensor(t, torch.float32, name)
+        if tuple(t.shape) != (n,) or t.device != stream[0].device:
+            raise ValueError(f"{name} must be ({n},) on {stream[0].device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    flat, out1 = (torch.empty(n, dtype=dt, device=stream[0].device)
+                  for dt in _stream_dtypes(kind)[:2])
+    if n:
+        val = stream[3].data_ptr() if len(stream) == 4 else 0
+        cuda_lib.launch("sat_project_emit", stream[0].device, n, _MODES[kind], spec.params,
+                        stream[0].data_ptr(), stream[1].data_ptr(), stream[2].data_ptr(), val,
+                        flat.data_ptr(), out1.data_ptr())
+        project_emit.launches += 1
+    return (flat, out1, stream[3]) if kind == BinStrategy.EXACT else (flat, out1)
+
+
+project_emit.launches = 0
 
 
 def seed_points(lanes: int, generator: torch.Generator) -> torch.Tensor:

@@ -102,6 +102,43 @@ def rotate_xyz(cam: CameraParams, x, y, z):
     return sx, sy, sz
 
 
+def shared_operands(cam: CameraParams, sx, sy, sz):
+    """The camera-angle-independent half of :func:`project`: the rotation
+    operands and the vertical pixel coordinate (the angle turns about the
+    vertical screen axis)::
+
+        xc = sx + cc.x
+        zc = sz + cc.y        (the reference's cc.y <-> z pairing quirk)
+        fj = height/2 - (sy + cc.z) * width * scale
+
+    A rotation sequence that bins one orbit at every frame emits these once
+    per point (the JAX package's ``_step_fn_shared``, render.py:199-243).
+    Returns (xc, zc, fj).
+    """
+    xc = sx + f32(cam.center_camera[0])
+    zc = sz + f32(cam.center_camera[1])  # quirk: camera .y pairs with z
+    fj = f32(cam.height / 2.0) - (sy + f32(cam.center_camera[2])) * f32(cam.width_scaled)
+    return xc, zc, fj
+
+
+def angle_half(cam: CameraParams, xc, zc, cos_v: float, sin_v: float):
+    """The camera-angle-dependent half of :func:`project` (the JAX
+    package's ``_project_emit``, render.py:246-266)::
+
+        x2 = xc * cos + zc * sin
+        z2 = xc * sin - zc * cos
+        fi = (0.5/scale - x2) * width * scale
+
+    ``cos_v``/``sin_v`` are host floats, rounded to float32 here.
+    Returns (fi, z2).
+    """
+    cos_t, sin_t = f32(cos_v), f32(sin_v)
+    x2 = xc * cos_t + zc * sin_t
+    z2 = xc * sin_t - zc * cos_t
+    fi = (f32(cam.scale_adjusted_mid) - x2) * f32(cam.width_scaled)
+    return fi, z2
+
+
 def project(cam: CameraParams, sx, sy, sz, cos_v: float, sin_v: float):
     """Camera-angle rotate + project to pixel coordinates, including the
     reference's cc.y <-> z pairing quirk (src/lib.rs:776-786)::
@@ -111,15 +148,11 @@ def project(cam: CameraParams, sx, sy, sz, cos_v: float, sin_v: float):
         i  = (0.5/scale - x2) * width * scale
         j  = height/2 - (sy + cc.z) * width * scale
 
+    The composition of :func:`shared_operands` and :func:`angle_half`, so a
+    frame finished from the shared operands rounds exactly as this does.
     ``cos_v``/``sin_v`` are host floats, rounded to float32 here.
     Returns (fi, fj, z2).
     """
-    cos_t, sin_t = f32(cos_v), f32(sin_v)
-    xc = sx + f32(cam.center_camera[0])
-    zc = sz + f32(cam.center_camera[1])  # quirk: camera .y pairs with z
-    x2 = xc * cos_t + zc * sin_t
-    z2 = xc * sin_t - zc * cos_t
-    ws = f32(cam.width_scaled)
-    fi = (f32(cam.scale_adjusted_mid) - x2) * ws
-    fj = f32(cam.height / 2.0) - (sy + f32(cam.center_camera[2])) * ws
+    xc, zc, fj = shared_operands(cam, sx, sy, sz)
+    fi, z2 = angle_half(cam, xc, zc, cos_v, sin_v)
     return fi, fj, z2

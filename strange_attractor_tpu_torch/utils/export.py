@@ -1,6 +1,6 @@
 """Image export (port of ``strange_attractor_tpu.utils.export``): the
-(transparent, 8-bit) conversion on the device, then PNG (8/16-bit), BMP
-(8-bit) and PAM (8/16-bit) writers on the host.
+(transparent, 8-bit) conversion on the device, then PNG (8/16-bit), animated
+PNG, BMP (8-bit) and PAM (8/16-bit) writers on the host.
 
 Mirrors the reference CLI's export matrix (src/bin/main.rs:27-104). The
 writers are numpy + stdlib (zlib, struct) only. 16-bit PNG samples are
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -113,6 +114,56 @@ def png_bytes(arr: np.ndarray) -> bytes:
     return b"".join(
         [b"\x89PNG\r\n\x1a\n", _chunk(b"IHDR", ihdr), _chunk(b"IDAT", idat), _chunk(b"IEND", b"")]
     )
+
+
+def _apng_delay(fps: float) -> tuple[int, int]:
+    """(delay_num, delay_den): the exact rational frame delay ``1/fps`` s in
+    the fcTL's two u16 fields; 0/den ("as fast as possible") for rates
+    beyond their resolution."""
+    if not fps > 0:
+        raise ValueError(f"fps must be positive, got {fps!r}")
+    s = 1.0 / fps
+    den = Fraction(s).limit_denominator(65535).denominator
+    if round(s * den) > 65535:
+        den = max(1, int(65535 // s))
+    return min(65535, round(s * den)), den
+
+
+def apng_bytes(frames: np.ndarray, fps: float = 30.0, loops: int = 0) -> bytes:
+    """Encode (F, H, W, 3|4) uint8/uint16 frames as an animated PNG (the JAX
+    package's layout: IHDR, acTL, then per frame an fcTL and the frame's
+    IDAT, or fdAT after the first; full-canvas frames, dispose none, blend
+    source). ``loops=0`` loops forever. Deflated by the stdlib's zlib at
+    level 6, so the compressed bytes may differ from the JAX package's
+    parallel deflate; the decompressed frames do not."""
+    if frames.ndim != 4 or frames.shape[0] < 1:
+        raise ValueError(f"expected (F, H, W, C) frames, got {frames.shape}")
+    h, w, depth, color_type, _ = _png_geometry(frames[0])
+    delay_num, delay_den = _apng_delay(fps)
+    out = [b"\x89PNG\r\n\x1a\n",
+           _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)),
+           _chunk(b"acTL", struct.pack(">II", frames.shape[0], loops))]
+    seq = 0
+    for f, frame in enumerate(frames):
+        raw = _png_geometry(frame)[4]
+        out.append(_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, delay_num,
+                                               delay_den, 0, 0)))
+        seq += 1
+        data = zlib.compress(_filter_scanlines(raw, h), 6)
+        if f == 0:
+            out.append(_chunk(b"IDAT", data))
+        else:
+            out.append(_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    out.append(_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def write_apng(path, frames: np.ndarray, fps: float = 30.0) -> Path:
+    """Write :func:`apng_bytes` of ``frames`` to ``path``; returns the path."""
+    path = Path(path)
+    path.write_bytes(apng_bytes(frames, fps))
+    return path
 
 
 # ---------------------------------------------------------------- BMP ----
