@@ -9,14 +9,24 @@ Phases (each raises on failure; the last line is the JSON result only when
 all passed):
 
 1. card name and power limit, torch/CUDA versions, kernel build from csrc/;
-2. kernel A (csrc/map_emit.cu) against its plain twin on the card at 32768
-   lanes: warm-up + 4 chunks of 128 steps, streams and lane state
-   bit-identical (poisson-saturne; solar-sail's escaping orbits too; a
-   ragged 1000-lane batch at another angle);
+2. kernel A (csrc/map_emit.cu) against its plain twin on the card, PACKED
+   and SHARED emission, streams and lane state bit-identical after the
+   warm-up and each chunk: 32768 lanes x 128 steps (poisson-saturne;
+   solar-sail's escaping orbits too) and x 77 steps (a ragged tail), 16384
+   lanes x 128 and x 77 steps, a ragged 1000-lane batch of 77-step chunks
+   at another angle -- every kernel its launcher picks on a 132-SM card;
 3. kernel B (csrc/bin_packed.cu) against plain bin_chunk_packed on the card,
    bit-identical: random 4M-point stream over 1920x1080 with 5% out of
-   bounds, heavy duplicates and ties, a 40% pixel-0 flood, all out of
-   bounds, accumulation over 3 chunks, a ragged 1000003-point stream;
+   bounds, heavy duplicates and ties, a 40% pixel-0 flood, pixel 0 mixing
+   escaped (packed 0) and winning points above and below chunk/64, all out
+   of bounds, accumulation over 3 chunks, a ragged 1000003-point stream,
+   three solar-sail 1800x2000 chunks from kernel A;
+   then kernel and twin timed as a render meets them (see _honest_bin: 20
+   distinct consecutive chunks onto the state of the first 100, after one
+   discarded pass over them, CUDA events around each) on the flagship and
+   on solar-sail 1800x2000, with the
+   pixel-0 share, and torch.bincount / scatter_reduce_ "amax" timed on the
+   same chunks as the library yardstick;
 4. the flagship slice: poisson-saturne 1920x1080 Gas, 8-bit, seed 1, 1e8
    iterations, render -> colorize -> convert -> one host copy -> PNG, with
    both launch counters > 0 and a non-blank image; iters/s and wall time;
@@ -31,7 +41,9 @@ all passed):
    points over 1920x1080): phase 3's cases plus z ties with both zero
    signs, special floats (+-0, +-inf, NaN, -1.0), and three chunks onto a
    non-blank standing state holding -0.0 and exact z ties; each kernel and
-   twin timed on a real emitted stream; and what torch's own float16 cast
+   twin timed as phase 3 times bin_packed, on its own strategy's flagship
+   render, and scatter_reduce_ "amax" of the depth stream timed the same
+   way as bin_depth's library yardstick; and what torch's own float16 cast
    does with NaN payloads on the card, beside the kernels' bit conversion;
 8. the paths of the other entry points, 1920x1080, seed 1, 1e8 iterations,
    each with every launch count set to 0 just before it and read after:
@@ -61,7 +73,18 @@ all passed):
     render_sequence_shared (auto batch) and render_sequence_batched, each
     with every launch count set to 0 just before it and read after; frames
     per second of render + colorize + convert + host copy, the device idle
-    share of one traced batch of each engine, two frames encoded to PNG.
+    share of one traced batch of each engine, two frames encoded to PNG;
+13. 10^9 iterations of each path: the flagship, solar-sail 1800x2000, the
+    --depth flagship, exact-kernel and exact16-kernel (both tie modes), each
+    rendered once with every launch count at 0 just before it, then three
+    warm synchronized renders for its rate; and a rotation of 100 frames at
+    10^7 through the shared-orbit engine, its launches counted.
+
+The line before the card's is the ``kernels`` JSON: per kernel its mean
+time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
+(``bytes``, ``flops``, ``bound_ms``, ``bound_by``), its launches on the path
+run (``launches``) and in phase 13's 10^9 iterations (``launches_per_1e9``),
+and a PyTorch yardstick (``library_ms``, or null with ``library_note``).
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -127,28 +150,41 @@ def phase_kernel_a(sat, dev) -> dict:
 
     err = 0.0
     rng = np.random.default_rng(0)
-    # the flagship shape; solar-sail's escaping orbits; a ragged lane count
-    # (a partial last block) at another camera angle
-    for preset, chunks, lanes, angle in (("poisson-saturne", 4, LANES, 0.0),
-                                         ("solar-sail", 2, LANES, 0.0),
-                                         ("poisson-saturne", 1, 1000, 0.7)):
+    # every kernel the launcher picks on a 132-SM H100, in PACKED and SHARED
+    # emission: one thread per lane from 16896 lanes (the flagship shape,
+    # solar-sail's escaping orbits, a ragged tail of 77 = 9 x 8 + 5 steps);
+    # the 32-lane ring from 8448 lanes (128 and 77 steps: a partial last
+    # tile of 24); the 16-lane ring below (ragged lanes, a partial last
+    # block, and ragged steps at another camera angle)
+    for preset, chunks, lanes, steps, angle in (("poisson-saturne", 4, LANES, CHUNK, 0.0),
+                                                ("solar-sail", 2, LANES, CHUNK, 0.0),
+                                                ("poisson-saturne", 2, LANES, 77, 0.0),
+                                                ("poisson-saturne", 2, 16384, CHUNK, 0.3),
+                                                ("poisson-saturne", 2, 16384, 77, 0.3),
+                                                ("poisson-saturne", 2, 1000, 77, 0.7)):
+        tag = f"{preset} {lanes} x {steps}"
         cfg = sat.presets.by_name(preset, width=W, height=H)
         spec = emit.emit_spec(cfg, angle)
         seeds = torch.from_numpy((rng.random((3, lanes)) * 0.1).astype(np.float32)).to(dev)
         pk, pp = seeds.clone(), seeds.clone()
         emit.map_emit(spec, pk, cfg.warmup, emit=False)
         emit.map_emit_plain(spec, pp, cfg.warmup, emit=False)
-        err = max(err, _check_equal(f"{preset} warm-up state", pk, pp))
+        err = max(err, _check_equal(f"{tag} warm-up state", pk, pp))
+        sk, sp = pk.clone(), pp.clone()
         for c in range(chunks):
-            fk, qk = emit.map_emit(spec, pk, CHUNK)
-            fp, qp = emit.map_emit_plain(spec, pp, CHUNK)
-            err = max(err, _check_equal(f"{preset} chunk {c} flat", fk, fp),
-                      _check_equal(f"{preset} chunk {c} packed", qk, qp),
-                      _check_equal(f"{preset} chunk {c} state", pk, pp))
+            fk, qk = emit.map_emit(spec, pk, steps)
+            fp, qp = emit.map_emit_plain(spec, pp, steps)
+            shared = emit.map_emit_shared(spec, sk, steps)
+            err = max(err, _check_equal(f"{tag} chunk {c} flat", fk, fp),
+                      _check_equal(f"{tag} chunk {c} packed", qk, qp),
+                      _check_equal(f"{tag} chunk {c} state", pk, pp),
+                      _check_streams(f"{tag} chunk {c} shared", shared,
+                                     emit.map_emit_shared_plain(spec, sp, steps)),
+                      _check_equal(f"{tag} chunk {c} shared state", sk, sp))
         oob = float((fk == W * H).float().mean())
-        print(f"[A] {preset}, angle {angle}: warm-up + {chunks} x {CHUNK} steps at "
-              f"{lanes} lanes bit-identical (out of bounds {oob:.3f}, pixel-0 share "
-              f"{float((fk == 0).float().mean()):.3f})")
+        print(f"[A] {preset}, angle {angle}: warm-up + {chunks} x {steps} steps at "
+              f"{lanes} lanes bit-identical, packed and shared (out of bounds {oob:.3f}, "
+              f"pixel-0 share {float((fk == 0).float().mean()):.3f})")
     # timing at the flagship chunk shape
     cfg = sat.presets.poisson_saturne(width=W, height=H)
     spec = emit.emit_spec(cfg, 0.0)
@@ -157,13 +193,153 @@ def phase_kernel_a(sat, dev) -> dict:
     ms = _time_ms(lambda: emit.map_emit(spec, pts, CHUNK), reps=20)
     plain_ms = _time_ms(lambda: emit.map_emit_plain(spec, pts, CHUNK), reps=3, warm=1)
     print(f"[A] {LANES} lanes x {CHUNK} steps: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "spec": spec, "pts": pts}
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_kernel_b(sat, dev, a: dict) -> dict:
+# honest bin timing: the planes a render has built after HONEST_WARM chunks,
+# then HONEST_TIMED distinct consecutive chunks binned onto them one by one
+HONEST_WARM, HONEST_TIMED = 100, 20
+# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32 ops/s
+PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
+# bytes a bin moves: its stream per point, and per touched pixel each
+# plane read once and written once
+STREAM_BYTES = {"packed": 8, "depth": 8, "exact": 12}
+PLANE_BYTES = {"packed": 16, "depth": 8, "exact": 24}
+LIBRARY_NOTE = "no single PyTorch call computes it"
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the float32 rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return {"bytes": nbytes, "flops": ops, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _solar_sail(sat, iterations: int, **kw):
+    return sat.presets.solar_sail(iterations=iterations, width=1800, height=2000, seed=1,
+                                  transparent=False, **kw)
+
+
+def _warm_lanes(sat, dev, cfg, spec) -> torch.Tensor:
+    """The (3, lanes) points of ``cfg``'s seeded render on the card, after
+    its warm-up through kernel A."""
     from strange_attractor_tpu_torch.ops import emit
+    from strange_attractor_tpu_torch.render import seed_generator
+
+    lanes = sat.plan_schedule(cfg)[0]
+    pts = emit.seed_points(lanes, seed_generator(cfg)).to(dev).t().contiguous()
+    emit.map_emit(spec, pts, cfg.warmup, emit=False)
+    return pts
+
+
+def _render_chunks(sat, dev, cfg, bin_fn):
+    """(standing planes, chunks): the flat planes of ``cfg``'s seeded render
+    after its warm-up and HONEST_WARM chunks of kernel A and ``bin_fn``,
+    and the streams of the next HONEST_TIMED chunks, made beforehand."""
+    from strange_attractor_tpu_torch.ops import emit
+    from strange_attractor_tpu_torch.render import _state_to_planes
+
+    chunk = sat.plan_schedule(cfg)[1]
+    kind = cfg.resolved_bin_strategy().planes_kind()
+    spec = emit.emit_spec(cfg, cfg.angle)
+    pts = _warm_lanes(sat, dev, cfg, spec)
+    planes = _state_to_planes(sat.RenderState.create(cfg, device=dev))
+    for _ in range(HONEST_WARM):
+        planes = bin_fn(*planes, *emit.map_emit(spec, pts, chunk, kind=kind))
+    return planes, [emit.map_emit(spec, pts, chunk, kind=kind) for _ in range(HONEST_TIMED)]
+
+
+def _chunk_ms(fn, planes, chunks) -> list:
+    """Device ms of ``fn(*planes, *chunk)`` for each chunk in turn, each
+    onto the planes the one before left (a copy of ``planes``), by CUDA
+    events around each call. One discarded pass over the same chunks, onto
+    another copy, warms the code and the allocator first. A spin kernel
+    queued before the timed pass lets the host enqueue it all, so each pair
+    of events brackets its call's device work; a plain twin of many
+    launches outruns the spin and is timed as a user meets it."""
+    state = tuple(p.clone() for p in planes)
+    for c in chunks:
+        state = fn(*state, *c)
+    state = tuple(p.clone() for p in planes)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in chunks]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for (start, end), c in zip(events, chunks):
+        start.record()
+        state = fn(*state, *c)
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
+
+
+def _honest_bin(sat, dev, cfg, kernel, twin, tag: str) -> dict:
+    """A bin kernel and its twin timed as a render meets them: distinct
+    consecutive chunks onto a standing state (``_render_chunks``), with the
+    row's bound from this run's chunks."""
+    kind = cfg.resolved_bin_strategy().planes_kind().value
+    planes, chunks = _render_chunks(sat, dev, cfg, kernel)
+    npix = cfg.width * cfg.height
+    ms = _chunk_ms(kernel, planes, chunks)
+    plain = _chunk_ms(twin, planes, chunks)
+    m = chunks[0][0].numel()
+    touched = sum(int(torch.unique(f[(f >= 0) & (f < npix)]).numel()) for f, *_ in chunks)
+    touched /= len(chunks)
+    share0 = sum(float((f == 0).float().mean()) for f, *_ in chunks) / len(chunks)
+    out = {"ms": sum(ms) / len(ms), "ms_range": [min(ms), max(ms)],
+           "plain_ms": sum(plain) / len(plain), "points": m, "touched_px": touched,
+           "pixel0_share": share0, "planes": planes, "chunks": chunks,
+           **_bound(STREAM_BYTES[kind] * m + PLANE_BYTES[kind] * touched, 2.0 * m)}
+    print(f"{tag} {cfg.width}x{cfg.height}, {len(chunks)} distinct chunks of {m} points onto "
+          f"the state of {HONEST_WARM}: kernel {out['ms']:.4f} ms ({min(ms):.4f}-{max(ms):.4f}), "
+          f"plain {out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms by {out['bound_by']} "
+          f"({touched:.0f} px touched a chunk), pixel-0 share {share0:.4f}")
+    return out
+
+
+def _public(row: dict) -> dict:
+    """A timing row without its tensors."""
+    return {k: v for k, v in row.items() if k not in ("planes", "chunks")}
+
+
+def _library_bin_packed(dev, npix: int, planes, chunks) -> dict:
+    """One PyTorch call per half of bin_packed's function on the same
+    chunks, timed the same way: torch.bincount of the int32 pixel stream
+    (the count half) and scatter_reduce_ "amax" of the u32 updates (the max
+    half; int64 carries u32 exactly, and scatter wants int64 indices). The
+    port never calls them; they are a yardstick."""
+    flats = [(f,) for f, _ in chunks]
+    count = _chunk_ms(lambda c, f: (torch.bincount(f, minlength=npix + 1),), planes[:1], flats)
+    idx = [(f.long(), (p.long() & 0xFFFFFFFF)) for f, p in chunks]
+    plane = torch.zeros(npix + 1, dtype=torch.int64, device=dev)
+    plane[:npix] = planes[1].long() & 0xFFFFFFFF
+    amax = _chunk_ms(lambda p, i, u: (p.scatter_reduce_(0, i, u, "amax"),), (plane,), idx)
+    parts = {"bincount": sum(count) / len(count), "scatter_reduce_amax": sum(amax) / len(amax)}
+    print(f"[3] library yardstick: torch.bincount {parts['bincount']:.4f} ms, "
+          f"scatter_reduce_ amax {parts['scatter_reduce_amax']:.4f} ms a chunk")
+    return parts
+
+
+def _library_bin_depth(dev, npix: int, planes, chunks) -> float:
+    """bin_depth's function as one PyTorch call on the same chunks, timed
+    the same way: scatter_reduce_ "amax" of the float32 z stream into the
+    zbuf plane with one more cell, which out-of-bounds points (flat = npix)
+    land in. It differs from the kernel only in the sign of zero (the
+    kernel takes +0.0 over a standing -0.0). The port never calls it."""
+    zbuf = torch.full((npix + 1,), -1.0, dtype=torch.float32, device=dev)
+    zbuf[:npix] = planes[0]
+    idx = [(f.long(), z) for f, z in chunks]
+    ms = _chunk_ms(lambda p, i, z: (p.scatter_reduce_(0, i, z, "amax"),), (zbuf,), idx)
+    mean = sum(ms) / len(ms)
+    print(f"[7] library yardstick: scatter_reduce_ amax of float32 z {mean:.4f} ms a chunk")
+    return mean
+
+
+def phase_kernel_b(sat, dev) -> dict:
+    from strange_attractor_tpu_torch.ops import emit
+    from strange_attractor_tpu_torch.ops import kernel_binning as kb
     from strange_attractor_tpu_torch.ops.binning import bin_chunk_packed
-    from strange_attractor_tpu_torch.ops.kernel_binning import bin_chunk_kernel
 
     npix, m = W * H, LANES * CHUNK
     rng = np.random.default_rng(1)
@@ -175,6 +351,16 @@ def phase_kernel_b(sat, dev, a: dict) -> dict:
         return (torch.from_numpy(flat.astype(np.int32)).to(dev),
                 torch.from_numpy(packed).to(dev))
 
+    def pixel0(share):
+        # pixel 0 mixes escaped points (NaN z: packed 0) and real points
+        # whose packed value must win
+        flat = rng.integers(0, npix, m)
+        at0 = rng.random(m) < share
+        flat[at0] = 0
+        packed = u32(m)
+        packed[at0 & (rng.random(m) < 0.6)] = 0
+        return [stream(flat, packed)]
+
     flat = rng.integers(0, npix, m)
     flat[rng.random(m) < 0.05] = npix
     cases = {"random 5% oob": [stream(flat, u32(m))],
@@ -182,31 +368,41 @@ def phase_kernel_b(sat, dev, a: dict) -> dict:
     flood = rng.integers(0, npix, m)
     flood[rng.random(m) < 0.40] = 0
     cases["40% pixel-0 flood"] = [stream(flood, u32(m))]
+    cases["pixel 0 mixed, 30% (above chunk/64)"] = pixel0(0.30)
+    cases["pixel 0 mixed, 1% (below chunk/64)"] = pixel0(0.01)
     cases["all out of bounds"] = [stream(np.full(m, npix), u32(m))]
     cases["3 chunks accumulated"] = [stream(rng.integers(0, npix + 1, m), u32(m))
                                      for _ in range(3)]
     cases["ragged 1000003 points"] = [stream(rng.integers(0, npix + 1, 1_000_003),
                                              u32(1_000_003))]
+    # three real solar-sail 1800x2000 chunks from kernel A (its pixel-0 flood)
+    sail = _solar_sail(sat, 1_000_000_000)
+    spec = emit.emit_spec(sail, 0.0)
+    pts = torch.from_numpy((rng.random((3, LANES)) * 0.1).astype(np.float32)).to(dev)
+    emit.map_emit(spec, pts, sail.warmup, emit=False)
+    cases["solar-sail 1800x2000 stream"] = [emit.map_emit(spec, pts, CHUNK) for _ in range(3)]
     err = 0.0
     for name, chunks in cases.items():
-        start = (torch.from_numpy(u32(npix, 1000)).to(dev), torch.from_numpy(u32(npix)).to(dev))
+        size = npix if not name.startswith("solar") else sail.width * sail.height
+        start = (torch.from_numpy(u32(size, 1000)).to(dev), torch.from_numpy(u32(size)).to(dev))
         ck, qk = start[0].clone(), start[1].clone()
         cp, qp = start
         for f, p in chunks:
-            ck, qk = bin_chunk_kernel(ck, qk, f, p)
+            ck, qk = kb.bin_chunk_kernel(ck, qk, f, p)
             cp, qp = bin_chunk_packed(cp, qp, f, p)
         err = max(err, _check_equal(f"{name} count", ck, cp),
                   _check_equal(f"{name} packed", qk, qp))
-        print(f"[B] {name}: {len(chunks)} x {chunks[0][0].numel()} points over {npix} px "
-              f"bit-identical")
-    # timing on a real flagship chunk stream
-    f, p = emit.map_emit(a["spec"], a["pts"], CHUNK)
-    count = torch.zeros(npix, dtype=torch.int32, device=dev)
-    packed = torch.zeros_like(count)
-    ms = _time_ms(lambda: bin_chunk_kernel(count, packed, f, p), reps=20)
-    plain_ms = _time_ms(lambda: bin_chunk_packed(count, packed, f, p), reps=5, warm=1)
-    print(f"[B] M={m} points, npix={npix}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+        share0 = sum(float((f == 0).float().mean()) for f, _ in chunks) / len(chunks)
+        print(f"[B] {name}: {len(chunks)} x {chunks[0][0].numel()} points over {size} px "
+              f"bit-identical (pixel-0 share {share0:.3f})")
+    flag = _honest_bin(sat, dev, _flagship(sat, 1_000_000_000), kb.bin_chunk_kernel,
+                       bin_chunk_packed, "[3] bin_packed flagship")
+    library = _library_bin_packed(dev, npix, flag["planes"], flag["chunks"])
+    sail_row = _honest_bin(sat, dev, sail, kb.bin_chunk_kernel, bin_chunk_packed,
+                           "[3] bin_packed solar-sail")
+    return {"err": err, **_public(flag), "library_ms": sum(library.values()),
+            "library_parts": library,
+            "solar_sail": _public(sail_row)}
 
 
 def _flagship(sat, iterations: int, **kw):
@@ -391,8 +587,8 @@ def _standing(dev, npix: int, rng, blank: bool):
         rng.integers(0, 1000, npix).astype(np.int32), rng.random(npix).astype(np.float32), zbuf))
 
 
-def phase_bins(sat, dev, a: dict) -> dict:
-    from strange_attractor_tpu_torch.ops import binning, emit, kernel_binning as kb
+def phase_bins(sat, dev) -> dict:
+    from strange_attractor_tpu_torch.ops import binning, kernel_binning as kb
 
     npix, m = W * H, LANES * CHUNK
     rng = np.random.default_rng(3)
@@ -410,6 +606,12 @@ def phase_bins(sat, dev, a: dict) -> dict:
             lambda *p: kb.bin_chunk_kernel_exact16(*p, ties="earliest", scratch=scratch),
             lambda *p: binning.bin_chunk_exact16(*p, ties="earliest"), "exact"),
     }
+    B = sat.BinStrategy
+    strategies = {"bin_depth": dict(render=sat.RenderKind.DEPTH),
+                  "bin_exact": dict(bin_strategy=B.EXACT_KERNEL),
+                  "bin_exact16_value": dict(bin_strategy=B.EXACT16_KERNEL),
+                  "bin_exact16_earliest": dict(bin_strategy=B.EXACT16_KERNEL,
+                                               exact16_ties="earliest")}
     cases = _bin_cases(dev, npix, m, rng)
     out = {}
     for name, (kernel, twin, planes) in bins.items():
@@ -427,16 +629,14 @@ def phase_bins(sat, dev, a: dict) -> dict:
             if not bool((scratch == -1).all()):
                 raise AssertionError(f"{name} {case}: the scratch plane was left dirty")
         print(f"[7] {name}: {len(cases)} cases over {npix} px bit-identical to its plain twin")
-        # timing on a real flagship chunk stream of the matching emission
-        pts = a["pts"].clone()
-        kind = sat.BinStrategy.DEPTH if planes == "depth" else sat.BinStrategy.EXACT
-        stream = emit.map_emit(a["spec"], pts, CHUNK, kind=kind)
-        state = _standing(dev, npix, rng, blank=True)
-        state = state[2:] if planes == "depth" else state
-        ms = _time_ms(lambda: kernel(*state, *stream), reps=20)
-        plain_ms = _time_ms(lambda: twin(*state, *stream), reps=5, warm=1)
-        print(f"[7] {name}: M={m} points, npix={npix}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[name] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms}
+        # timed as a render meets it, on the flagship of its strategy
+        cfg = _flagship(sat, 1_000_000_000, **strategies[name])
+        row = _honest_bin(sat, dev, cfg, kernel, twin, f"[7] {name}")
+        out[name] = {"err": 0.0, **_public(row)}
+        if name == "bin_depth":
+            out[name]["library_ms"] = _library_bin_depth(dev, npix, row["planes"], row["chunks"])
+        else:
+            out[name].update(library_ms=None, library_note=LIBRARY_NOTE)
     return out
 
 
@@ -671,15 +871,120 @@ def phase_sequence_cell(sat, dev, out_dir: Path, card: str) -> dict:
     return runs
 
 
+def _render_rates(sat, dev, cfg, tag: str, card: str, kernels: tuple, reps: int = 3) -> dict:
+    """One render of ``cfg`` with every launch count at 0 just before it
+    (raises unless each of ``kernels`` launched), then ``reps`` warm
+    renders, each synchronized and timed on the host's clock."""
+    lanes, chunk, nchunks = sat.plan_schedule(cfg)
+    executed = lanes * chunk * nchunks
+    counters = _zero_counters()
+    sat.render(cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = _require_launches(tag, counters, kernels)
+    rates = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sat.render(cfg, device=dev)
+        torch.cuda.synchronize()
+        rates.append(executed / (time.perf_counter() - t0))
+    print(f"{tag} {cfg.width}x{cfg.height} {cfg.iterations:.0e} ({lanes} lanes x {chunk} steps x "
+          f"{nchunks} chunks): launches {launches}; render "
+          + ", ".join(f"{r:.4e}" for r in rates) + f" iters/s on {card}")
+    return {"launches": launches, "iters_per_s": rates}
+
+
+def phase_renders(sat, dev, card: str) -> dict:
+    """10^9 iterations of each path: a render's launches, counted, and its
+    synchronized rate over three warm renders; then a rotation of 100
+    frames at 10^7 through the shared-orbit engine, its launches counted."""
+    B = sat.BinStrategy
+    paths = {
+        "flagship": (_flagship(sat, 10**9), ("map_emit", "bin_packed")),
+        "solar_sail": (_solar_sail(sat, 10**9), ("map_emit", "bin_packed")),
+        "depth": (_flagship(sat, 10**9, render=sat.RenderKind.DEPTH), ("map_emit", "bin_depth")),
+        "exact": (_flagship(sat, 10**9, bin_strategy=B.EXACT_KERNEL), ("map_emit", "bin_exact")),
+        "exact16_value": (_flagship(sat, 10**9, bin_strategy=B.EXACT16_KERNEL),
+                          ("map_emit", "bin_exact16")),
+        "exact16_earliest": (_flagship(sat, 10**9, bin_strategy=B.EXACT16_KERNEL,
+                                       exact16_ties="earliest"), ("map_emit", "bin_exact16")),
+    }
+    out = {name: _render_rates(sat, dev, cfg, f"[13] {name}", card, kernels)
+           for name, (cfg, kernels) in paths.items()}
+    counters = _zero_counters()
+    sat.render_sequence_shared(_flagship(sat, 10_000_000), [3.6 * f for f in range(100)],
+                               transparent=False, eight_bit=True, device=dev)
+    launches = _require_launches("[13] rotation", counters,
+                                 ("map_emit", "project_emit", "bin_packed"))
+    print(f"[13] rotation, 100 frames x 1e7 iterations: launches {launches}")
+    out["rotation"] = {"launches": launches}
+    return out
+
+
 _SOURCE = "strange_attractor_tpu_torch/csrc/"
 _TPU = "strange_attractor_tpu/ops/kernel_binning.py:"
-# kernel row -> (source, replaces, path run that reports its launches)
+# kernel row -> (source, replaces, its counter, its 10^9 render in phase 13)
 _NEW_ROWS = {
-    "bin_depth": ("bin_depth.cu", _TPU + "735", "bin_depth"),
-    "bin_exact": ("bin_exact.cu", _TPU + "542", "bin_exact"),
-    "bin_exact16_value": ("bin_exact16.cu", _TPU + "584", "bin_exact16"),
-    "bin_exact16_earliest": ("bin_exact16.cu", _TPU + "584", "bin_exact16"),
+    "bin_depth": ("bin_depth.cu", _TPU + "735", "bin_depth", "depth"),
+    "bin_exact": ("bin_exact.cu", _TPU + "542", "bin_exact", "exact"),
+    "bin_exact16_value": ("bin_exact16.cu", _TPU + "584", "bin_exact16", "exact16_value"),
+    "bin_exact16_earliest": ("bin_exact16.cu", _TPU + "584", "bin_exact16", "exact16_earliest"),
 }
+# float32 operations a point costs: the Sprott step 60 (6 monomials, 3 rows
+# of 9 products and 9 sums), rotation and projection operands 20, the color
+# transform 26 (delta, magnitude, sqrt, classifier, value), the frame's
+# projection and packing 18
+EMIT_OPS = {"packed": 124, "depth": 98, "exact": 124, "shared": 106, "project": 18}
+# bytes written a point: fused PACKED/DEPTH 8, EXACT 12, shared 16 (xc, zc,
+# fj, val); project_emit reads the 16 and writes 8
+EMIT_BYTES = {"packed": 8, "depth": 8, "exact": 12, "shared": 16, "project": 24}
+
+
+def _emit_bound(kind: str, lanes: int, steps: int) -> dict:
+    """Kernel A's (or kernel P's) bound for one chunk: the streams, plus
+    the lane state read and written once (none for kernel P)."""
+    points = lanes * steps
+    state = 0 if kind == "project" else 2 * 12 * lanes
+    return _bound(EMIT_BYTES[kind] * points + state, EMIT_OPS[kind] * points)
+
+
+def _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders) -> list:
+    """The final ``kernels`` line: one row per kernel, with its time, its
+    plain twin's, its bound from this run's shapes, its launches on its
+    path run and in a 10^9-iteration render (phase 13)."""
+    no_library = {"library_ms": None, "library_note": LIBRARY_NOTE}
+    flag = renders["flagship"]["launches"]
+    rows = [{
+        "name": "map_emit", "route": "cuda", "source": _SOURCE + "map_emit.cu",
+        "replaces": "strange_attractor_tpu/render.py:410",
+        "launches": s["launches"]["map_emit"],
+        "max_abs_err": max(a["err"], modes["err"], shared["err"]),
+        "ms": a["ms"], "plain_ms": a["plain_ms"], **_emit_bound("packed", LANES, CHUNK),
+        "launches_per_1e9": flag["map_emit"], **no_library,
+        "modes_ms": modes["ms"],
+        "shared_cell": {"ms": shared["ms"]["shared"], "plain_ms": shared["ms"]["shared_plain"],
+                        **_emit_bound("shared", SEQ_LANES, SEQ_CHUNK)},
+    }, {
+        "name": "bin_packed", "route": "cuda", "source": _SOURCE + "bin_packed.cu",
+        "replaces": _TPU + "475", "launches": s["launches"]["bin_packed"],
+        "max_abs_err": b["err"], "launches_per_1e9": flag["bin_packed"],
+        **{k: v for k, v in b.items() if k != "err"},
+    }]
+    for name, (source, replaces, counter, render) in _NEW_ROWS.items():
+        row = {k: v for k, v in bins[name].items() if k != "err"}
+        rows.append({"name": name, "route": "cuda", "source": _SOURCE + source,
+                     "replaces": replaces, "launches": runs[name]["launches"][counter],
+                     "max_abs_err": bins[name]["err"], **row,
+                     "launches_per_1e9": renders[render]["launches"][counter]})
+    rows.append({"name": "project_emit", "route": "cuda", "source": _SOURCE + "project_emit.cu",
+                 "replaces": "strange_attractor_tpu/render.py:246",
+                 "launches": seq["shared"][-1]["launches"]["project_emit"],
+                 "max_abs_err": shared["err"], "ms": shared["ms"]["project"],
+                 "plain_ms": shared["ms"]["project_plain"],
+                 **_emit_bound("project", SEQ_LANES, SEQ_CHUNK),
+                 "launches_per_1e9": renders["rotation"]["launches"]["project_emit"],
+                 **no_library})
+    return rows
 
 
 def main() -> int:
@@ -699,42 +1004,21 @@ def main() -> int:
     print(f"[1] built and loaded {cuda_lib.library_path().name} in "
           f"{time.perf_counter() - t:.2f} s")
     a = phase_kernel_a(sat, dev)
-    b = phase_kernel_b(sat, dev, a)
+    b = phase_kernel_b(sat, dev)
     with tempfile.TemporaryDirectory() as tmp:
         s = phase_slice(sat, dev, Path(tmp), card)
         phase_twins(sat, dev, Path(tmp))
         modes = phase_emit_modes(sat, dev)
-        bins = phase_bins(sat, dev, a)
+        bins = phase_bins(sat, dev)
         runs = phase_paths(sat, dev, Path(tmp), card)
         phase_path_twins(sat, dev, Path(tmp))
         shared = phase_shared_emit(sat, dev)
         phase_sequence_twins(sat, dev)
         seq = phase_sequence_cell(sat, dev, Path(tmp), card)
+    renders = phase_renders(sat, dev, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    kernels = [
-        {"name": "map_emit", "route": "cuda",
-         "source": "strange_attractor_tpu_torch/csrc/map_emit.cu",
-         "replaces": "strange_attractor_tpu/render.py:410",
-         "launches": s["launches"]["map_emit"],
-         "max_abs_err": max(a["err"], modes["err"], shared["err"]),
-         "ms": a["ms"], "plain_ms": a["plain_ms"]},
-        {"name": "bin_packed", "route": "cuda",
-         "source": "strange_attractor_tpu_torch/csrc/bin_packed.cu",
-         "replaces": "strange_attractor_tpu/ops/kernel_binning.py:475",
-         "launches": s["launches"]["bin_packed"], "max_abs_err": b["err"],
-         "ms": b["ms"], "plain_ms": b["plain_ms"]},
-    ]
-    for name, (source, replaces, counter) in _NEW_ROWS.items():
-        kernels.append({"name": name, "route": "cuda", "source": _SOURCE + source,
-                        "replaces": replaces, "launches": runs[name]["launches"][counter],
-                        "max_abs_err": bins[name]["err"], "ms": bins[name]["ms"],
-                        "plain_ms": bins[name]["plain_ms"]})
-    kernels.append({"name": "project_emit", "route": "cuda", "source": _SOURCE + "project_emit.cu",
-                    "replaces": "strange_attractor_tpu/render.py:246",
-                    "launches": seq["shared"][-1]["launches"]["project_emit"],
-                    "max_abs_err": shared["err"], "ms": shared["ms"]["project"],
-                    "plain_ms": shared["ms"]["project_plain"]})
+    kernels = _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,12 +3,25 @@
 // emission, the counterpart of the JAX package's _finish_emit
 // (strange_attractor_tpu/render.py:164-196). Both kernels include it, so a
 // frame projected from the shared-orbit stream ends exactly as the fused
-// map+emit step does.
+// map+emit step does. Also the card's SM count, by which the launchers of
+// map_emit.cu and bin_packed.cu size their grids.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+// the current card's SM count, asked once per library (132 on the H100 SXM)
+static inline int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
 
 // the launch constants of both kernels (ops/cuda_lib.py EmitParams)
 struct EmitParams {

@@ -7,7 +7,8 @@ whose int8 one-hot matrix products dodge the scalar-scatter floor. Hopper
 has native atomics, so each Hopper kernel adds, maxes or mins straight into
 the planes, one thread per point:
 
-- ``csrc/bin_packed.cu`` (:func:`bin_chunk_kernel`): count and packed max;
+- ``csrc/bin_packed.cu`` (:func:`bin_chunk_kernel`): count and packed max,
+  the pixel-0 flood reduced inside each block first;
 - ``csrc/bin_depth.cu`` (:func:`bin_chunk_kernel_depth`): the mono-u32 max
   of the depth, in place on the float32 plane;
 - ``csrc/bin_exact.cu`` (:func:`bin_chunk_kernel_exact`) and
@@ -20,8 +21,9 @@ bit-identical to the plain twins in :mod:`ops.binning`. A wrapper runs its
 twin for CPU tensors and returns new planes; for CUDA tensors it launches
 its kernel on the current stream, updates the planes IN PLACE, returns
 them and adds one to its ``launches`` count. It raises when it cannot
-launch. The TPU path's pixel-0 flood eviction is not carried; on the GPU
-the flood is a hot-pixel atomic contention (ROADMAP B1).
+launch. ``bin_packed.cu`` carries the TPU path's pixel-0 flood eviction as
+a warp vote and one atomic pair per block; the other bins still meet the
+flood as a hot-pixel atomic contention (ROADMAP).
 """
 
 from __future__ import annotations

@@ -46,7 +46,7 @@ import torch
 from .config import BinStrategy, Config, RenderKind
 from .ops import binning, emit, kernel_binning
 from .ops.colorize import colorize_planes, state_planes
-from .runtime import RenderState
+from .runtime import RenderState, resolve_device
 from .utils.export import convert_format_device, to_host
 from .utils.sequencing import angle_iter
 
@@ -164,14 +164,6 @@ def _check_supported(config: Config) -> None:
         raise NotImplementedError("reseed_lanes is not ported yet (ROADMAP)")
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render on a CUDA device requested, but torch.cuda is not "
-                           "available; pass device='cpu' to run the plain twins")
-    return device
-
-
 def _strategy(config: Config, state: Optional[RenderState]) -> BinStrategy:
     """The strategy a render of ``config`` onto ``state`` runs: the resolved
     one, or the state's own planes kind when they differ (a plane-compatible
@@ -183,8 +175,14 @@ def _strategy(config: Config, state: Optional[RenderState]) -> BinStrategy:
     return state.strategy
 
 
+def _same_device(want: torch.device, have: torch.device) -> bool:
+    """Whether ``have`` is ``want``; a CUDA device without an index
+    (``"cuda"``) stands for whichever card ``have`` names."""
+    return want.type == have.type and (want.index is None or want.index == have.index)
+
+
 def _check_state(config: Config, state: RenderState) -> None:
-    _device(state.device)
+    resolve_device(state.device)
     if state.shape != (config.height, config.width):
         raise ValueError(f"state canvas {state.shape} does not match config "
                          f"{(config.height, config.width)}")
@@ -229,14 +227,20 @@ def render(config: Config, state: Optional[RenderState] = None,
     returned state to refine progressively; the input ``state`` is not
     modified. ``generator`` draws the seed points (default:
     :func:`seed_generator`, content-keyed for a seeded progressive call).
-    ``angle`` (radians) overrides ``config.angle``. ``device`` is where a
-    fresh state lives; a given state keeps its own device. A CUDA device
-    must be available: there is no CPU fallback.
+    ``angle`` (radians) overrides ``config.angle``. ``device`` is where the
+    render runs: a given state must lie there (a ``ValueError`` names both
+    devices otherwise), so a state loaded onto the CPU renders on the CPU
+    only when ``device="cpu"`` says so. A CUDA device must be available:
+    there is no CPU fallback.
     """
     _check_supported(config)
     progressive = state is not None
+    device = torch.device(device)
     if state is None:
-        state = RenderState.create(config, device=_device(device))
+        state = RenderState.create(config, device=device)
+    elif not _same_device(device, state.device):
+        raise ValueError(f"the state lies on {state.device}, but render was asked to run on "
+                         f"{device}; pass device={str(state.device)!r} or move the state")
     _check_state(config, state)
     if config.iterations < 1:
         return state
@@ -254,7 +258,7 @@ def _check_seeds(seeds: torch.Tensor, lanes: int) -> torch.device:
     if tuple(seeds.shape) != (lanes, 3) or seeds.dtype != torch.float32:
         raise ValueError(f"seeds must be ({lanes}, 3) float32, got "
                          f"{tuple(seeds.shape)} {seeds.dtype}")
-    return _device(seeds.device)
+    return resolve_device(seeds.device)
 
 
 def render_seeds(config: Config, seeds: torch.Tensor, state: Optional[RenderState] = None,
@@ -367,7 +371,7 @@ def _sequence_setup(config: Config, angles_deg, frames_per_batch: Optional[int],
     angles = np.asarray(list(angles_deg), np.float64)
     if frames_per_batch is None or frames_per_batch <= 0:
         frames_per_batch = _auto_frames_per_batch(config, config.resolved_bin_strategy())
-    return angles, frames_per_batch, _device(device)
+    return angles, frames_per_batch, resolve_device(device)
 
 
 def render_sequence_batched(config: Config, angles_deg, frames_per_batch: Optional[int] = None,

@@ -7,6 +7,10 @@ DEPTH (zbuf). u32 planes are ``torch.int32`` tensors holding the u32 bits
 (see :mod:`ops.binning`). Checkpoints use the JAX package's ``.npz`` keys and
 uint32/float32 contents, so a checkpoint written by either package loads in
 the other.
+
+Every entry point that makes planes puts them on the card unless the caller
+passes ``device="cpu"``; on a machine without CUDA the card default raises
+(:func:`resolve_device`) instead of quietly running the plain twins.
 """
 
 from __future__ import annotations
@@ -18,6 +22,16 @@ import torch
 
 from .config import BinStrategy, Config
 from .ops.binning import to_u32_bits, u32
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raise if it is a CUDA device and
+    torch.cuda is not available: the port has no CPU fallback."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was requested, but torch.cuda is not available; "
+                           "pass device='cpu' to run the plain twins")
+    return device
 
 
 class RenderState(NamedTuple):
@@ -51,9 +65,10 @@ class RenderState(NamedTuple):
         raise ValueError("empty RenderState")
 
     @classmethod
-    def blank(cls, shape: tuple, strategy: BinStrategy, device="cpu") -> "RenderState":
+    def blank(cls, shape: tuple, strategy: BinStrategy, device="cuda") -> "RenderState":
         """Zeroed planes of a given (H, W) shape and strategy (count 0,
         steps 0.0, zbuf -1.0: the reference's reset, src/lib.rs:682-699)."""
+        device = resolve_device(device)
         kind = strategy.planes_kind()
         if kind == BinStrategy.DEPTH:
             return cls(zbuf=torch.full(shape, -1.0, dtype=torch.float32, device=device))
@@ -68,7 +83,7 @@ class RenderState(NamedTuple):
 
     @classmethod
     def create(cls, config: Config, strategy: Optional[BinStrategy] = None,
-               device="cpu") -> "RenderState":
+               device="cuda") -> "RenderState":
         """Fresh zeroed state for ``config`` (AUTO resolves as in render)."""
         if strategy is None or strategy == BinStrategy.AUTO:
             strategy = config.resolved_bin_strategy()
@@ -112,9 +127,10 @@ def state_to_numpy(state: RenderState) -> dict:
     return out
 
 
-def state_from_numpy(arrays, device="cpu") -> RenderState:
+def state_from_numpy(arrays, device="cuda") -> RenderState:
     """Inverse of :func:`state_to_numpy` (accepts any mapping of planes,
     such as an open ``np.load`` file or a JAX state's ``device_get``)."""
+    device = resolve_device(device)
     kw = {}
     for name in arrays:
         arr = np.ascontiguousarray(arrays[name])
@@ -132,7 +148,7 @@ def save_state(path: str, state: RenderState) -> None:
     np.savez_compressed(path, **state_to_numpy(state))
 
 
-def load_state(path: str, device="cpu") -> RenderState:
-    """Load a checkpoint written by either package."""
+def load_state(path: str, device="cuda") -> RenderState:
+    """Load a checkpoint written by either package onto ``device``."""
     with np.load(path) as data:
         return state_from_numpy({k: data[k] for k in data.files}, device)

@@ -88,15 +88,30 @@ def _stream(case: str, npix: int, n: int, rng):
         flat = rng.integers(0, npix, n)
         flat[rng.random(n) < 0.4] = 0
         return flat, rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    if case.startswith("pixel0"):
+        # pixel 0 mixes escaped points (NaN z packs to 0) with real points
+        # whose packed value must win; above or below the JAX path's
+        # eviction gate of chunk/64 hits
+        flat = rng.integers(0, npix, n)
+        at0 = rng.random(n) < (0.3 if case == "pixel0-above-gate" else 0.01)
+        flat[at0] = 0
+        packed = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        packed[at0 & (rng.random(n) < 0.7)] = 0
+        return flat, packed
     assert case == "all-oob"
     return np.full(n, npix), rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
 
 
-@pytest.mark.parametrize("case", ["random", "ties", "flood", "all-oob"])
+@pytest.mark.parametrize("case", ["random", "ties", "flood", "all-oob", "pixel0-above-gate",
+                                  "pixel0-below-gate"])
 def test_bin_chunk_packed_matches_jax_kernel_and_reference(case):
     npix, n = 128 * 128, 1 << 12
     flat, packed = _stream(case, npix, n, np.random.default_rng(5))
     flat = flat.astype(np.int32)
+    if case.startswith("pixel0"):
+        hits0 = flat == 0
+        assert (hits0.sum() > n // 64) == (case == "pixel0-above-gate")
+        assert (packed[hits0] == 0).any() and (packed[hits0] != 0).any()
     jc, jp = kb.bin_chunk_kernel(jnp.zeros((npix,), jnp.uint32), jnp.zeros((npix,), jnp.uint32),
                                  jnp.asarray(flat), jnp.asarray(packed), npix=npix,
                                  section=1 << 10, interpret=True)

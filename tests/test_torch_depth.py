@@ -145,7 +145,7 @@ def test_depth_tone_map_bit_exact_vs_eager_jax(name):
 
 def test_depth_state_colorized_as_gas_raises():
     cfg = sat.presets.poisson_saturne(width=8, height=8)
-    state = sat.RenderState.create(cfg, sat.BinStrategy.DEPTH)
+    state = sat.RenderState.create(cfg, sat.BinStrategy.DEPTH, device="cpu")
     with pytest.raises(ValueError, match="DEPTH"):
         sat.colorize(cfg, state)
 
@@ -206,7 +206,7 @@ def test_progressive_depth_render_continues_from_the_zbuf_bits():
 def test_depth_npz_states_cross_both_ways(tmp_path):
     zbuf = _standing_zbuf(np.random.default_rng(45)).reshape(36, 64)
     jsave(str(tmp_path / "jax.npz"), JState(zbuf=jnp.asarray(zbuf)))
-    st = sat.load_state(str(tmp_path / "jax.npz"))
+    st = sat.load_state(str(tmp_path / "jax.npz"), device="cpu")
     assert st.strategy == sat.BinStrategy.DEPTH
     np.testing.assert_array_equal(_bits(st.zbuf.numpy()), _bits(zbuf))
     sat.save_state(str(tmp_path / "torch.npz"), st)

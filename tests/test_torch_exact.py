@@ -348,7 +348,7 @@ def test_exact_npz_states_cross_both_ways(tmp_path):
     count, steps, zbuf = _standing(np.random.default_rng(37))
     jsave(str(tmp_path / "jax.npz"), JState(count=jnp.asarray(count), steps=jnp.asarray(steps),
                                             zbuf=jnp.asarray(zbuf)))
-    st = sat.load_state(str(tmp_path / "jax.npz"))
+    st = sat.load_state(str(tmp_path / "jax.npz"), device="cpu")
     assert st.strategy == sat.BinStrategy.EXACT
     np.testing.assert_array_equal(st.zbuf.numpy().view(np.uint32), zbuf.view(np.uint32))
     sat.save_state(str(tmp_path / "torch.npz"), st)

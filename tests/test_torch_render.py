@@ -104,7 +104,7 @@ def test_merge_and_reset_match_jax_on_exact_states():
                            steps=rng.random((6, 7)).astype(np.float32), zbuf=zbuf))
     planes[1]["zbuf"][0, :3] = planes[0]["zbuf"][0, :3]  # z ties
     want = jmerge(*(JState(**{k: jax.numpy.asarray(v) for k, v in p.items()}) for p in planes))
-    got = sat.merge(*(state_from_numpy(p) for p in planes))
+    got = sat.merge(*(state_from_numpy(p, device="cpu") for p in planes))
     assert got.strategy == sat.BinStrategy.EXACT
     for k, v in state_to_numpy(got).items():
         np.testing.assert_array_equal(v, np.asarray(getattr(want, k)))
@@ -119,7 +119,7 @@ def test_npz_checkpoints_cross_both_ways(tmp_path):
     packed = rng.integers(0, 2**32, (9, 16), dtype=np.uint64).astype(np.uint32)
     jsave(str(tmp_path / "jax.npz"), JState(count=jax.numpy.asarray(count),
                                             packed=jax.numpy.asarray(packed)))
-    st = sat.load_state(str(tmp_path / "jax.npz"))
+    st = sat.load_state(str(tmp_path / "jax.npz"), device="cpu")
     assert st.strategy == sat.BinStrategy.PACKED
     np.testing.assert_array_equal(st.count.numpy().view(np.uint32), count)
     np.testing.assert_array_equal(st.packed.numpy().view(np.uint32), packed)
@@ -130,7 +130,7 @@ def test_npz_checkpoints_cross_both_ways(tmp_path):
     np.testing.assert_array_equal(np.asarray(back.packed), packed)
     arrays = state_to_numpy(st)
     assert set(arrays) == {"count", "packed"} and arrays["count"].dtype == np.uint32
-    assert torch.equal(state_from_numpy(arrays).packed, st.packed)
+    assert torch.equal(state_from_numpy(arrays, device="cpu").packed, st.packed)
 
 
 @pytest.mark.parametrize("preset", ["poisson-saturne", "solar-sail"])

@@ -168,7 +168,7 @@ def test_degenerate_inputs():
     blank = sat.render_sequence_shared(blank_cfg, [0.0, 90.0], device="cpu")
     np.testing.assert_array_equal(
         blank, sat.render_sequence_batched(blank_cfg, [0.0, 90.0], device="cpu"))
-    one = _image(blank_cfg, sat.RenderState.create(blank_cfg))
+    one = _image(blank_cfg, sat.RenderState.create(blank_cfg, device="cpu"))
     assert blank.shape == (2, 27, 48, 4)
     np.testing.assert_array_equal(blank[1], one)
     empty = sat.render_sequence_shared(_cfg(), [], device="cpu")
