@@ -26,7 +26,7 @@ all passed):
    discarded pass over them, CUDA events around each) on the flagship and
    on solar-sail 1800x2000, with the
    pixel-0 share, and torch.bincount / scatter_reduce_ "amax" timed on the
-   same chunks as the library yardstick;
+   same chunks of both as the library yardstick;
 4. the flagship slice: poisson-saturne 1920x1080 Gas, 8-bit, seed 1, 1e8
    iterations, render -> colorize -> convert -> one host copy -> PNG, with
    both launch counters > 0 and a non-blank image; iters/s and wall time;
@@ -39,10 +39,19 @@ all passed):
    csrc/bin_exact.cu, csrc/bin_exact16.cu in both tie modes) against their
    plain twins on the card, bit-identical, at the flagship chunk (4,194,304
    points over 1920x1080): phase 3's cases plus z ties with both zero
-   signs, special floats (+-0, +-inf, NaN, -1.0), and three chunks onto a
-   non-blank standing state holding -0.0 and exact z ties; each kernel and
-   twin timed as phase 3 times bin_packed, on its own strategy's flagship
-   render, and scatter_reduce_ "amax" of the depth stream timed the same
+   signs, special floats (+-0, +-inf, NaN, -1.0), three chunks onto a
+   non-blank standing state holding -0.0 and exact z ties, and what a bin
+   by canvas tiles must get right: pixel 0 mixing escaped and winning
+   points above and below chunk/64, every point in one run and in one
+   tile, ties on the edges of runs and tiles, a 37x23 canvas (smaller than
+   a tile), 1800x2000 and 3840x2160 (more tiles than SMs), 7680x4320 (two
+   bands of tiles), a 140M-point chunk with NaN depths (more spans than
+   the partition's table has at least), three solar-sail
+   1800x2000 chunks from kernel A in EXACT emission, the tile bins' control
+   words all zero after every launch; each kernel and twin timed as phase
+   3 times bin_packed, on its own strategy's flagship render and, for the
+   EXACT-plane bins, on solar-sail 1800x2000 with the pixel-0 share, and
+   scatter_reduce_ "amax" of the depth stream timed the same
    way as bin_depth's library yardstick; and what torch's own float16 cast
    does with NaN payloads on the card, beside the kernels' bit conversion;
 8. the paths of the other entry points, 1920x1080, seed 1, 1e8 iterations,
@@ -75,7 +84,8 @@ all passed):
     per second of render + colorize + convert + host copy, the device idle
     share of one traced batch of each engine, two frames encoded to PNG;
 13. 10^9 iterations of each path: the flagship, solar-sail 1800x2000, the
-    --depth flagship, exact-kernel and exact16-kernel (both tie modes), each
+    --depth flagship, exact-kernel and exact16-kernel (both tie modes),
+    solar-sail 1800x2000 through exact-kernel and exact16-kernel, each
     rendered once with every launch count at 0 just before it, then three
     warm synchronized renders for its rate; and a rotation of 100 frames at
     10^7 through the shared-orbit engine, its launches counted.
@@ -83,8 +93,11 @@ all passed):
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
 (``bytes``, ``flops``, ``bound_ms``, ``bound_by``), its launches on the path
-run (``launches``) and in phase 13's 10^9 iterations (``launches_per_1e9``),
-and a PyTorch yardstick (``library_ms``, or null with ``library_note``).
+run (``launches``) and in phase 13's 10^9 iterations (``launches_per_1e9``; one
+wrapper call is one launch; for a bin ``cuda_kernels_per_launch`` says how
+many CUDA kernels it started, counted in a trace of the timed chunks, and
+``cuda_kernels_us`` each one's mean time), and a PyTorch yardstick (``library_ms``, or null with
+``library_note``).
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -274,10 +287,48 @@ def _chunk_ms(fn, planes, chunks) -> list:
     return [start.elapsed_time(end) for start, end in events]
 
 
+def _cuda_kernels(fn, planes, chunks) -> dict:
+    """The CUDA kernels that ``fn(*planes, *chunk)`` starts, from a
+    torch.profiler trace of one pass over ``chunks`` onto a copy of
+    ``planes``: how many a call (``cuda_kernels_per_launch``) and each one's
+    mean device time in microseconds (``cuda_kernels_us``). None and empty
+    when the trace holds no device activity.
+
+    A trace can lose the first kernels after its start (in a process that
+    has used the card for a minute, every other trace lost one to four), so
+    a discarded pass over the same chunks comes first, and a spin kernel
+    marks where the counted pass begins."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = tuple(p.clone() for p in planes)
+    state = tuple(p.clone() for p in planes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in chunks:
+            lead = fn(*lead, *c)
+        torch.cuda._sleep(1000)
+        for c in chunks:
+            state = fn(*state, *c)
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.name, e.time_range.end - e.time_range.start)
+                    for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset")))
+    marks = [i for i, (_, name, _) in enumerate(events) if "spin_kernel" in name]
+    if not marks:
+        return {"cuda_kernels_per_launch": None, "cuda_kernels_us": {}}
+    times = {}
+    for _, name, us in events[marks[-1] + 1:]:
+        times.setdefault(name.split("(")[0], []).append(us)
+    return {"cuda_kernels_per_launch": sum(map(len, times.values())) / len(chunks),
+            "cuda_kernels_us": {name: sum(us) / len(us) for name, us in times.items()}}
+
+
 def _honest_bin(sat, dev, cfg, kernel, twin, tag: str) -> dict:
     """A bin kernel and its twin timed as a render meets them: distinct
     consecutive chunks onto a standing state (``_render_chunks``), with the
-    row's bound from this run's chunks."""
+    row's bound from this run's chunks and the CUDA kernels a launch starts,
+    counted in a trace of the same chunks."""
     kind = cfg.resolved_bin_strategy().planes_kind().value
     planes, chunks = _render_chunks(sat, dev, cfg, kernel)
     npix = cfg.width * cfg.height
@@ -290,11 +341,14 @@ def _honest_bin(sat, dev, cfg, kernel, twin, tag: str) -> dict:
     out = {"ms": sum(ms) / len(ms), "ms_range": [min(ms), max(ms)],
            "plain_ms": sum(plain) / len(plain), "points": m, "touched_px": touched,
            "pixel0_share": share0, "planes": planes, "chunks": chunks,
-           **_bound(STREAM_BYTES[kind] * m + PLANE_BYTES[kind] * touched, 2.0 * m)}
+           **_bound(STREAM_BYTES[kind] * m + PLANE_BYTES[kind] * touched, 2.0 * m),
+           **_cuda_kernels(kernel, planes, chunks)}
     print(f"{tag} {cfg.width}x{cfg.height}, {len(chunks)} distinct chunks of {m} points onto "
           f"the state of {HONEST_WARM}: kernel {out['ms']:.4f} ms ({min(ms):.4f}-{max(ms):.4f}), "
           f"plain {out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms by {out['bound_by']} "
           f"({touched:.0f} px touched a chunk), pixel-0 share {share0:.4f}")
+    print(f"{tag}: {out['cuda_kernels_per_launch']} CUDA kernels a launch, traced (us each): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["cuda_kernels_us"].items()))
     return out
 
 
@@ -303,7 +357,7 @@ def _public(row: dict) -> dict:
     return {k: v for k, v in row.items() if k not in ("planes", "chunks")}
 
 
-def _library_bin_packed(dev, npix: int, planes, chunks) -> dict:
+def _library_bin_packed(dev, npix: int, planes, chunks, tag: str = "flagship") -> dict:
     """One PyTorch call per half of bin_packed's function on the same
     chunks, timed the same way: torch.bincount of the int32 pixel stream
     (the count half) and scatter_reduce_ "amax" of the u32 updates (the max
@@ -316,7 +370,7 @@ def _library_bin_packed(dev, npix: int, planes, chunks) -> dict:
     plane[:npix] = planes[1].long() & 0xFFFFFFFF
     amax = _chunk_ms(lambda p, i, u: (p.scatter_reduce_(0, i, u, "amax"),), (plane,), idx)
     parts = {"bincount": sum(count) / len(count), "scatter_reduce_amax": sum(amax) / len(amax)}
-    print(f"[3] library yardstick: torch.bincount {parts['bincount']:.4f} ms, "
+    print(f"[3] library yardstick, {tag}: torch.bincount {parts['bincount']:.4f} ms, "
           f"scatter_reduce_ amax {parts['scatter_reduce_amax']:.4f} ms a chunk")
     return parts
 
@@ -400,9 +454,12 @@ def phase_kernel_b(sat, dev) -> dict:
     library = _library_bin_packed(dev, npix, flag["planes"], flag["chunks"])
     sail_row = _honest_bin(sat, dev, sail, kb.bin_chunk_kernel, bin_chunk_packed,
                            "[3] bin_packed solar-sail")
+    sail_library = _library_bin_packed(dev, sail.width * sail.height, sail_row["planes"],
+                                       sail_row["chunks"], "solar-sail")
     return {"err": err, **_public(flag), "library_ms": sum(library.values()),
             "library_parts": library,
-            "solar_sail": _public(sail_row)}
+            "solar_sail": {**_public(sail_row), "library_ms": sum(sail_library.values()),
+                           "library_parts": sail_library}}
 
 
 def _flagship(sat, iterations: int, **kw):
@@ -499,7 +556,7 @@ def phase_twins(sat, dev, out_dir: Path) -> None:
 def phase_emit_modes(sat, dev) -> dict:
     from strange_attractor_tpu_torch.ops import emit
 
-    err, ms = 0.0, {}
+    err, ms, plain_ms = 0.0, {}, {}
     rng = np.random.default_rng(2)
     for preset in ("poisson-saturne", "solar-sail"):
         cfg = sat.presets.by_name(preset, width=W, height=H)
@@ -518,9 +575,11 @@ def phase_emit_modes(sat, dev) -> dict:
                   f"bit-identical (z and val at full float32)")
             if preset == "poisson-saturne":
                 ms[kind.value] = _time_ms(lambda: emit.map_emit(spec, pk, CHUNK, kind=kind), 20)
-    print(f"[6] {LANES} lanes x {CHUNK} steps: kernel A depth {ms['depth']:.4f} ms, "
-          f"exact {ms['exact']:.4f} ms")
-    return {"err": err, "ms": ms}
+                plain_ms[kind.value] = _time_ms(
+                    lambda: emit.map_emit_plain(spec, pp, CHUNK, kind=kind), reps=2, warm=1)
+    print(f"[6] {LANES} lanes x {CHUNK} steps: kernel A depth {ms['depth']:.4f} ms (plain "
+          f"{plain_ms['depth']:.4f}), exact {ms['exact']:.4f} ms (plain {plain_ms['exact']:.4f})")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def _f16_probe(dev) -> None:
@@ -537,11 +596,20 @@ def _f16_probe(dev) -> None:
     print(f"[7] f32 -> f16 on the card ({pairs})")
 
 
-def _bin_cases(dev, npix: int, m: int, rng) -> dict:
-    """(flat, z, val) chunk lists on the card: phase 3's cases, z ties with
-    both zero signs, special floats, and three chunks for a standing state."""
+def _bin_cases(sat, dev, npix: int, m: int, rng) -> dict:
+    """name -> (canvas pixels, [(flat, z, val) chunks on the card]): phase
+    3's cases, z ties with both zero signs, special floats, three chunks
+    for a standing state, and the streams that a bin by canvas tiles makes
+    risky: pixel 0 mixing escaped and winning points, every point in one
+    run or one tile, ties on the edges of runs and tiles, a canvas smaller
+    than a tile, canvases of more tiles than the card has SMs and of more
+    pixels than one band of tiles, a chunk of more spans than the
+    partition's table has at least, and real solar-sail chunks."""
+    from strange_attractor_tpu_torch.ops import cuda_lib, emit
+
     special = np.array([0.0, -0.0, -1.0, 1.0, np.inf, -np.inf, np.nan, -1e-45, 1e-40,
                         -1.0000001, 3.4028235e38, 65520.0, 6e-8], np.float32)
+    tiles = cuda_lib.library().sat_bin_tiles(npix)  # as the kernels cut the canvas
 
     def chunk(flat, z=None, val=None):
         n = len(flat)
@@ -549,26 +617,81 @@ def _bin_cases(dev, npix: int, m: int, rng) -> dict:
         val = rng.random(n).astype(np.float32) if val is None else val
         return tuple(torch.from_numpy(a).to(dev) for a in (flat.astype(np.int32), z, val))
 
-    def ties(n):
+    def tie_z(n):
         z = (rng.integers(-2, 3, n) * 0.25).astype(np.float32)
         z[rng.random(n) < 0.2] = -0.0
-        return chunk(rng.integers(0, 50, n), z, (rng.integers(0, 8, n) / 8).astype(np.float32))
+        return z, (rng.integers(0, 8, n) / 8).astype(np.float32)
+
+    def ties(n):
+        return chunk(rng.integers(0, 50, n), *tie_z(n))
+
+    def pixel0(share):
+        # pixel 0 mixes escaped points (z = -inf, as kernel A emits them),
+        # NaN and both zeros, and real points that must win by the key
+        flat = rng.integers(0, npix, m)
+        at0 = rng.random(m) < share
+        flat[at0] = 0
+        z = rng.normal(0, 0.5, m).astype(np.float32)
+        z[at0 & (rng.random(m) < 0.6)] = -np.inf
+        odd = at0 & (rng.random(m) < 0.01)
+        z[odd] = rng.choice(special, int(odd.sum()))
+        return [chunk(flat, z)]
 
     flat = rng.integers(0, npix, m)
     flat[rng.random(m) < 0.05] = npix
     flood = rng.integers(0, npix, m)
     flood[rng.random(m) < 0.40] = 0
-    return {
+    # the pixels on both sides of every kind of edge: of a run, of the first
+    # round of tiles, of the canvas
+    edges = np.array([0, 1, 31, 32, 33, 63, 64, 32 * tiles - 1, 32 * tiles, 32 * tiles + 1,
+                      32 * tiles + 31, 32 * tiles + 32, 64 * tiles - 1, 64 * tiles,
+                      npix - 33, npix - 32, npix - 1])
+    one_tile = 32 * (5 + tiles * rng.integers(0, npix // (32 * tiles), m)) + rng.integers(0, 32, m)
+    sail = _solar_sail(sat, 1_000_000_000)
+    spec = emit.emit_spec(sail, 0.0)
+    pts = torch.from_numpy((rng.random((3, LANES)) * 0.1).astype(np.float32)).to(dev)
+    emit.map_emit(spec, pts, sail.warmup, emit=False)
+    small, wide, uhd = 37 * 23, sail.width * sail.height, 3840 * 2160
+    cases = {
         "random 5% oob": [chunk(flat)],
         "z ties and both zero signs on 50 px": [ties(m)],
         "special floats on 64 px": [chunk(rng.integers(0, 64, m), rng.choice(special, m),
                                           rng.choice(special, m))],
         "40% pixel-0 flood": [chunk(flood)],
+        "pixel 0 mixed, 30% (above chunk/64)": pixel0(0.30),
+        "pixel 0 mixed, 1% (below chunk/64)": pixel0(0.01),
+        "every point in one run of 32 px": [chunk(4096 + rng.integers(0, 32, m), *tie_z(m))],
+        f"every point in one tile of {tiles}": [chunk(one_tile)],
+        "ties on the edges of runs and tiles": [chunk(rng.choice(edges, m), *tie_z(m))],
         "all out of bounds": [chunk(np.full(m, npix))],
         "3 chunks onto a standing state": [ties(m), chunk(rng.integers(0, npix + 1, m)),
                                            chunk(rng.integers(0, 64, m), rng.choice(special, m))],
         "ragged 1000003 points": [chunk(rng.integers(0, npix + 1, 1_000_003))],
     }
+    cases = {name: (npix, chunks) for name, chunks in cases.items()}
+    cases["37x23 canvas, smaller than a tile"] = (small, [
+        chunk(rng.integers(0, small + 1, m)), chunk(rng.integers(0, small, 1000), *tie_z(1000))])
+    cases["1800x2000 canvas"] = (wide, [chunk(rng.integers(0, wide + 1, m)) for _ in range(2)])
+    cases["3840x2160 canvas"] = (uhd, [chunk(rng.integers(0, uhd + 1, m)) for _ in range(2)])
+    # more pixels than one band of tiles holds (1024 tiles of 576 runs)
+    cases["7680x4320 canvas, two bands"] = (4 * uhd, [chunk(rng.integers(0, 4 * uhd + 1, m))])
+    cases["solar-sail 1800x2000 stream"] = (wide, [
+        emit.map_emit(spec, pts, CHUNK, kind=sat.BinStrategy.EXACT) for _ in range(3)])
+    # more points than the table's 1024 spans of 2^17 hold for the EXACT and
+    # EXACT16-earliest kernels, made on the card: z ties on every pixel, the
+    # earliest far apart, and on a third of the pixels one NaN depth, which
+    # takes EXACT's pixel and blocks the whole chunk there
+    gen = torch.Generator(device=dev).manual_seed(5)
+    long = LONG_CHUNK
+    long_flat = torch.randint(0, small + 1, (long,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    long_z = torch.randint(-2, 3, (long,), generator=gen, device=dev).float() * 0.25
+    late = torch.randint(max(0, long - (1 << 20)), long, (300,), generator=gen, device=dev)
+    long_z[late[long_flat[late] % 3 == 0]] = float("nan")
+    cases[f"long chunk of {long} points on 37x23, with NaN depths"] = (small, [(
+        long_flat, long_z,
+        torch.randint(0, 8, (long,), generator=gen, device=dev).float() / 8)])
+    return cases
 
 
 def _standing(dev, npix: int, rng, blank: bool):
@@ -587,56 +710,89 @@ def _standing(dev, npix: int, rng, blank: bool):
         rng.integers(0, 1000, npix).astype(np.int32), rng.random(npix).astype(np.float32), zbuf))
 
 
+# points of phase 7's longest chunk: more than the 2^27 that the least
+# width of the partition's table holds for the EXACT and EXACT16-earliest
+# kernels, whose records keep a 17-bit offset in a span
+LONG_CHUNK = 140_000_000
+# the cases that land on a random standing state (the others on blank planes)
+STANDING_CASES = ("3 chunks", "pixel 0 mixed", "ties on the edges", "37x23", "solar-sail",
+                  "long chunk")
+
+
+def _exact_bins(kb, binning, work) -> dict:
+    """name -> (kernel, twin) of the three EXACT-plane bins, the kernels on
+    one set of work buffers."""
+    return {
+        "bin_exact": (lambda *p: kb.bin_chunk_kernel_exact(*p, work=work),
+                      binning.bin_chunk_exact),
+        "bin_exact16_value": (
+            lambda *p: kb.bin_chunk_kernel_exact16(*p, ties="value", work=work),
+            lambda *p: binning.bin_chunk_exact16(*p, ties="value")),
+        "bin_exact16_earliest": (
+            lambda *p: kb.bin_chunk_kernel_exact16(*p, ties="earliest", work=work),
+            lambda *p: binning.bin_chunk_exact16(*p, ties="earliest")),
+    }
+
+
+def _bin_strategies(sat) -> dict:
+    """Bin name -> the config keywords of the render that runs it."""
+    B = sat.BinStrategy
+    return {"bin_depth": dict(render=sat.RenderKind.DEPTH),
+            "bin_exact": dict(bin_strategy=B.EXACT_KERNEL),
+            "bin_exact16_value": dict(bin_strategy=B.EXACT16_KERNEL),
+            "bin_exact16_earliest": dict(bin_strategy=B.EXACT16_KERNEL, exact16_ties="earliest")}
+
+
 def phase_bins(sat, dev) -> dict:
     from strange_attractor_tpu_torch.ops import binning, kernel_binning as kb
 
     npix, m = W * H, LANES * CHUNK
     rng = np.random.default_rng(3)
     _f16_probe(dev)
-    scratch = kb.new_scratch(npix, dev)
-    # name -> (kernel, twin, planes: "depth" or "exact")
-    bins = {
-        "bin_depth": (kb.bin_chunk_kernel_depth, binning.bin_chunk_depth, "depth"),
-        "bin_exact": (lambda *p: kb.bin_chunk_kernel_exact(*p, scratch=scratch),
-                      binning.bin_chunk_exact, "exact"),
-        "bin_exact16_value": (
-            lambda *p: kb.bin_chunk_kernel_exact16(*p, ties="value", scratch=scratch),
-            lambda *p: binning.bin_chunk_exact16(*p, ties="value"), "exact"),
-        "bin_exact16_earliest": (
-            lambda *p: kb.bin_chunk_kernel_exact16(*p, ties="earliest", scratch=scratch),
-            lambda *p: binning.bin_chunk_exact16(*p, ties="earliest"), "exact"),
-    }
-    B = sat.BinStrategy
-    strategies = {"bin_depth": dict(render=sat.RenderKind.DEPTH),
-                  "bin_exact": dict(bin_strategy=B.EXACT_KERNEL),
-                  "bin_exact16_value": dict(bin_strategy=B.EXACT16_KERNEL),
-                  "bin_exact16_earliest": dict(bin_strategy=B.EXACT16_KERNEL,
-                                               exact16_ties="earliest")}
-    cases = _bin_cases(dev, npix, m, rng)
-    out = {}
-    for name, (kernel, twin, planes) in bins.items():
-        for case, chunks in cases.items():
-            start = _standing(dev, npix, rng, blank=not case.startswith("3 chunks"))
-            if planes == "depth":
+    work = kb.new_work(LONG_CHUNK, dev)
+    bins = {"bin_depth": (kb.bin_chunk_kernel_depth, binning.bin_chunk_depth),
+            **_exact_bins(kb, binning, work)}
+    strategies = _bin_strategies(sat)
+    cases = _bin_cases(sat, dev, npix, m, rng)
+    out, long_ms = {}, {}
+    for name, (kernel, twin) in bins.items():
+        depth = name == "bin_depth"
+        for case, (size, chunks) in cases.items():
+            start = _standing(dev, size, rng, blank=not case.startswith(STANDING_CASES))
+            if depth:
                 start = start[2:]
             pk, pt = tuple(p.clone() for p in start), start
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             for f, z, v in chunks:
-                stream = (f, z) if planes == "depth" else (f, z, v)
+                stream = (f, z) if depth else (f, z, v)
+                start.record()
                 pk = kernel(*pk, *stream)
+                end.record()
                 pt = twin(*pt, *stream)
             for i, (g, w) in enumerate(zip(pk, pt)):
                 _check_equal(f"{name} {case} plane {i}", g, w)
-            if not bool((scratch == -1).all()):
-                raise AssertionError(f"{name} {case}: the scratch plane was left dirty")
-        print(f"[7] {name}: {len(cases)} cases over {npix} px bit-identical to its plain twin")
-        # timed as a render meets it, on the flagship of its strategy
+            if case.startswith("long chunk"):  # one call, not warmed
+                long_ms[name] = start.elapsed_time(end)
+                print(f"[7] {name}: {case}: {long_ms[name]:.4f} ms, one call")
+            # every launch leaves the control words zero for the next one
+            if not depth and bool(work.control.any()):
+                raise AssertionError(f"{name} {case}: the control words were left dirty")
+        print(f"[7] {name}: {len(cases)} cases bit-identical to its plain twin: "
+              + "; ".join(cases))
+        # timed as a render meets it, on the flagship of its strategy and on
+        # solar-sail 1800x2000 (the pixel-0 flood)
         cfg = _flagship(sat, 1_000_000_000, **strategies[name])
-        row = _honest_bin(sat, dev, cfg, kernel, twin, f"[7] {name}")
-        out[name] = {"err": 0.0, **_public(row)}
-        if name == "bin_depth":
+        row = _honest_bin(sat, dev, cfg, kernel, twin, f"[7] {name} flagship")
+        out[name] = {"err": 0.0, **_public(row),
+                     "long_chunk": {"points": LONG_CHUNK, "ms": long_ms[name]}}
+        if depth:
             out[name]["library_ms"] = _library_bin_depth(dev, npix, row["planes"], row["chunks"])
         else:
             out[name].update(library_ms=None, library_note=LIBRARY_NOTE)
+            sail = _honest_bin(sat, dev, _solar_sail(sat, 1_000_000_000, **strategies[name]),
+                               kernel, twin, f"[7] {name} solar-sail")
+            out[name]["solar_sail"] = {**_public(sail), "library_ms": None,
+                                       "library_note": LIBRARY_NOTE}
     return out
 
 
@@ -908,6 +1064,10 @@ def phase_renders(sat, dev, card: str) -> dict:
                           ("map_emit", "bin_exact16")),
         "exact16_earliest": (_flagship(sat, 10**9, bin_strategy=B.EXACT16_KERNEL,
                                        exact16_ties="earliest"), ("map_emit", "bin_exact16")),
+        "solar_sail_exact": (_solar_sail(sat, 10**9, bin_strategy=B.EXACT_KERNEL),
+                             ("map_emit", "bin_exact")),
+        "solar_sail_exact16_value": (_solar_sail(sat, 10**9, bin_strategy=B.EXACT16_KERNEL),
+                                     ("map_emit", "bin_exact16")),
     }
     out = {name: _render_rates(sat, dev, cfg, f"[13] {name}", card, kernels)
            for name, (cfg, kernels) in paths.items()}
@@ -961,7 +1121,8 @@ def _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders) -> list:
         "max_abs_err": max(a["err"], modes["err"], shared["err"]),
         "ms": a["ms"], "plain_ms": a["plain_ms"], **_emit_bound("packed", LANES, CHUNK),
         "launches_per_1e9": flag["map_emit"], **no_library,
-        "modes_ms": modes["ms"],
+        "modes": {kind: {"ms": modes["ms"][kind], "plain_ms": modes["plain_ms"][kind],
+                         **_emit_bound(kind, LANES, CHUNK)} for kind in modes["ms"]},
         "shared_cell": {"ms": shared["ms"]["shared"], "plain_ms": shared["ms"]["shared_plain"],
                         **_emit_bound("shared", SEQ_LANES, SEQ_CHUNK)},
     }, {

@@ -14,26 +14,34 @@
 // earliest-emitted point. The bucket's lower edge replaces zbuf if strictly
 // greater, and steps takes the f16 value back in f32.
 //
-// Design: two passes over a per-pixel u64 scratch key, all ones = empty.
-//   1. one thread per point: atomicAdd the count; a live point atomicMins
-//      sk << 16 | f16 ("value") or sk << 48 | index << 16 | f16 ("earliest",
-//      index = the point's position in the step-major stream, JAX's
-//      emission order). Min commutes: deterministic in any order.
-//   2. one thread per pixel: decode, strict merge, reset the key to empty.
+// Design: the tile bin of bin_tile.cuh. A record's key word is
+// sk << 16 | f16 (all ones for a point that counts and never wins: a live
+// point's sk is at most 0xBF80). "value" mins that word itself: a native
+// 32-bit shared-memory atomic and 8 bytes a pixel of shared memory.
+// "earliest" mins sk << 48 | index << 16 | f16 (index = the point's
+// position in the step-major stream, JAX's emission order), rebuilt in the
+// merge as in bin_exact.cu. Records are 8 bytes in both. Min commutes:
+// deterministic in any order.
 // The f16 conversion is done in bits, rounding to nearest even, with JAX's
 // NaN pattern (sign, quiet bit, top payload bits), not by the hardware's
 // cvt, which may return one canonical NaN: the value rule compares the bit
 // patterns, so a different NaN would change the winner. The decode back to
 // f32 is done in bits too (a NaN keeps its payload and gets the quiet bit).
 //
-// What bounds it on the H100: as bin_exact.cu, one 4-byte and at most one
-// 8-byte L2 atomic per point (a plain read first skips the key atomic when
-// the standing key is already smaller), then one sweep of the planes.
+// What bounds it on the H100: as bin_exact.cu, the partition's scatter and
+// the merge, not the roofline's ~19 us a flagship chunk: 0.081 ms ("value":
+// scatter 39 us, merge 16) and 0.094 ms ("earliest": 41 and 27) against the
+// atomics design's 0.137 and 0.134; a solar-sail chunk 0.083 and 0.094 ms
+// against 1.46 and 1.43 (one call, the two packages timed in turns by
+// perf_probe.py before the path of chunks above 2^27 points got its present
+// form; NVIDIA H100 80GB HBM3, 700.00 W). These sources read 0.079-0.080 and
+// 0.092-0.093 ms a flagship chunk, 0.081-0.082 and 0.092-0.094 a solar-sail
+// chunk in four runs of chip_smoke.py (same card and limit).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define EMPTY_KEY 0xFFFFFFFFFFFFFFFFull
+#include "bin_tile.cuh"
 
 // f32 bits -> f16 bits (ops/binning.py f16_bits)
 __device__ __forceinline__ unsigned f16_bits(unsigned u) {
@@ -65,56 +73,57 @@ __device__ __forceinline__ unsigned f32_bits(unsigned h) {
   return sign | ((e + 112u) << 23) | (m << 13);
 }
 
-__global__ void exact16_points_kernel(unsigned* __restrict__ count,
-                                      unsigned long long* __restrict__ key,
-                                      const int* __restrict__ flat,
-                                      const unsigned* __restrict__ z,
-                                      const unsigned* __restrict__ val, long long m, int npix,
-                                      int earliest) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m; i += stride) {
-    int f = flat[i];
-    if ((unsigned)f >= (unsigned)npix) continue;  // out of bounds (flat == npix)
-    atomicAdd(&count[f], 1u);
-    unsigned b = z[i];
+template <bool EARLIEST>
+struct Exact16Mode;
+
+template <>
+struct Exact16Mode<false> {
+  typedef unsigned Key;
+  static constexpr bool WIDE = false;
+  static constexpr bool READS_VAL = true;
+  __host__ __device__ static constexpr Key empty() { return 0xFFFFFFFFu; }
+  __device__ static unsigned key_word(unsigned b, unsigned v) {
     if ((b & 0x7FFFFFFFu) == 0u) b = 0u;  // -0.0 -> +0.0
-    if (!(__uint_as_float(b) > -1.0f)) continue;  // dead: counted, never wins
+    if (!(__uint_as_float(b) > -1.0f)) return bin_tile::DEAD;  // counted, never wins
     unsigned mono = (b >> 31) ? ~b : (b | 0x80000000u);
-    unsigned long long sk = (~(mono >> 16)) & 0xFFFFu;
-    unsigned long long v16 = f16_bits(val[i]);
-    unsigned long long k = earliest ? (sk << 48) | ((unsigned long long)i << 16) | v16
-                                    : (sk << 16) | v16;
-    if (*(volatile unsigned long long*)&key[f] > k) atomicMin(&key[f], k);
+    return (((~(mono >> 16)) & 0xFFFFu) << 16) | f16_bits(v);
   }
-}
-
-__global__ void exact16_merge_kernel(unsigned* __restrict__ steps, float* __restrict__ zbuf,
-                                     unsigned long long* __restrict__ key, int npix,
-                                     int earliest) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  unsigned long long k = key[p];
-  if (k == EMPTY_KEY) return;
-  key[p] = EMPTY_KEY;
-  unsigned sk = (unsigned)(k >> (earliest ? 48 : 16)) & 0xFFFFu;
-  unsigned mono = ((~sk) & 0xFFFFu) << 16;  // the bucket's lower edge
-  float z_q = __uint_as_float((mono >> 31) ? (mono & 0x7FFFFFFFu) : ~mono);
-  if (z_q > zbuf[p]) {  // strict: a bucket tie keeps the standing value
-    zbuf[p] = z_q;
-    steps[p] = f32_bits((unsigned)k & 0xFFFFu);
+  __device__ static Key key(unsigned word, unsigned) { return word; }
+  __device__ static unsigned bucket(Key k) { return k >> 16; }
+  __device__ static float depth(Key k) {
+    unsigned mono = ((~bucket(k)) & 0xFFFFu) << 16;  // the bucket's lower edge
+    return __uint_as_float((mono >> 31) ? (mono & 0x7FFFFFFFu) : ~mono);
   }
-}
+  __device__ static unsigned value_bits(Key k, const unsigned*) { return f32_bits(k & 0xFFFFu); }
+};
 
-extern "C" int sat_bin_exact16(unsigned* count, float* steps, float* zbuf,
-                               unsigned long long* key, const int* flat, const unsigned* z,
+template <>
+struct Exact16Mode<true> {
+  typedef bin_tile::u64 Key;
+  static constexpr bool WIDE = true;
+  static constexpr bool READS_VAL = true;
+  __host__ __device__ static constexpr Key empty() { return ~0ull; }
+  __device__ static unsigned key_word(unsigned b, unsigned v) {
+    return Exact16Mode<false>::key_word(b, v);
+  }
+  __device__ static Key key(unsigned word, unsigned index) {
+    return ((Key)(word >> 16) << 48) | ((Key)index << 16) | (word & 0xFFFFu);
+  }
+  __device__ static float depth(Key k) {
+    return Exact16Mode<false>::depth((unsigned)(k >> 48) << 16);
+  }
+  __device__ static unsigned value_bits(Key k, const unsigned*) {
+    return f32_bits((unsigned)k & 0xFFFFu);
+  }
+};
+
+extern "C" int sat_bin_exact16(unsigned* count, float* steps, float* zbuf, void* control,
+                               unsigned* records, const int* flat, const unsigned* z,
                                const unsigned* val, long long m, int npix, int earliest,
                                void* stream) {
-  const int threads = 256;
   cudaStream_t s = (cudaStream_t)stream;
-  long long want = (m + threads - 1) / threads;
-  int blocks = (int)(want < 132 * 64 ? want : 132 * 64);
-  exact16_points_kernel<<<blocks, threads, 0, s>>>(count, key, flat, z, val, m, npix, earliest);
-  exact16_merge_kernel<<<(npix + threads - 1) / threads, threads, 0, s>>>(
-      reinterpret_cast<unsigned*>(steps), zbuf, key, npix, earliest);
-  return (int)cudaGetLastError();
+  return earliest ? bin_tile::tile_bin<Exact16Mode<true>>(count, steps, zbuf, control, records,
+                                                           flat, z, val, m, npix, s)
+                  : bin_tile::tile_bin<Exact16Mode<false>>(count, steps, zbuf, control, records,
+                                                            flat, z, val, m, npix, s);
 }

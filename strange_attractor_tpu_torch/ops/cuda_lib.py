@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("map_emit.cu", "project_emit.cu", "bin_packed.cu", "bin_depth.cu", "bin_exact.cu",
            "bin_exact16.cu")
-HEADERS = ("emit_common.cuh",)
+HEADERS = ("emit_common.cuh", "bin_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -123,13 +123,16 @@ def library() -> ctypes.CDLL:
         "sat_project_emit": [i64, i32, EmitParams, vp, vp, vp, vp, vp, vp],
         "sat_bin_packed": [vp, vp, vp, vp, i64, i32],
         "sat_bin_depth": [vp, vp, vp, i64, i32],
-        "sat_bin_exact": [vp, vp, vp, vp, vp, vp, vp, i64, i32],
-        "sat_bin_exact16": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32],
+        "sat_bin_exact": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32],
+        "sat_bin_exact16": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)
         fn.argtypes = [*types, vp]
         fn.restype = ctypes.c_int
+    # no launch: the tiles csrc/bin_tile.cuh cuts a canvas of npix pixels into
+    lib.sat_bin_tiles.argtypes = [i32]
+    lib.sat_bin_tiles.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
 

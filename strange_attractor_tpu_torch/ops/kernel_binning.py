@@ -4,29 +4,38 @@ EXACT_KERNEL and EXACT16_KERNEL.
 
 On the TPU each entry point runs a section sort and a Pallas row apply
 whose int8 one-hot matrix products dodge the scalar-scatter floor. Hopper
-has native atomics, so each Hopper kernel adds, maxes or mins straight into
-the planes, one thread per point:
+has native atomics in global and in shared memory, and the Hopper kernels
+use them two ways:
 
-- ``csrc/bin_packed.cu`` (:func:`bin_chunk_kernel`): count and packed max,
-  the pixel-0 flood reduced inside each block first;
+- ``csrc/bin_packed.cu`` (:func:`bin_chunk_kernel`): count and packed max
+  straight into the planes, one thread per point, the pixel-0 flood reduced
+  inside each block first;
 - ``csrc/bin_depth.cu`` (:func:`bin_chunk_kernel_depth`): the mono-u32 max
-  of the depth, in place on the float32 plane;
+  of the depth, in place on the float32 plane, one thread per point;
 - ``csrc/bin_exact.cu`` (:func:`bin_chunk_kernel_exact`) and
-  ``csrc/bin_exact16.cu`` (:func:`bin_chunk_kernel_exact16`): count, a
-  per-pixel u64 winner-key min in a scratch plane, then a per-pixel merge
-  into the EXACT planes that also resets the scratch.
+  ``csrc/bin_exact16.cu`` (:func:`bin_chunk_kernel_exact16`): the tile bin
+  of ``csrc/bin_tile.cuh``. A counting sort partitions the chunk by canvas
+  tile (runs of 32 pixels dealt round-robin over the tiles), a block
+  aggregates its tile's hit counts and winner keys in shared memory and
+  merges them into the EXACT planes with plain loads and stores. No point
+  issues a global atomic; the pixel-0 flood leaves the stream in the
+  partition, reduced by warp votes to one atomic pair a block. The work
+  buffers are a :class:`BinWork` (:func:`new_work`).
 
 Every reduction commutes, so the planes come out deterministic and
 bit-identical to the plain twins in :mod:`ops.binning`. A wrapper runs its
 twin for CPU tensors and returns new planes; for CUDA tensors it launches
 its kernel on the current stream, updates the planes IN PLACE, returns
-them and adds one to its ``launches`` count. It raises when it cannot
-launch. ``bin_packed.cu`` carries the TPU path's pixel-0 flood eviction as
-a warp vote and one atomic pair per block; the other bins still meet the
-flood as a hot-pixel atomic contention (ROADMAP).
+them and adds one to its ``launches`` count (one wrapper call is one
+launch of the count, whatever number of CUDA kernels it starts: the tile
+bin starts five a band of the canvas). It raises when it cannot launch.
+``bin_depth.cu`` still meets the pixel-0 flood point by point, behind its
+read-before-atomic skip (ROADMAP).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,21 +56,60 @@ def _check(npix: int, m: int, planes, stream) -> None:
                 raise ValueError(f"{name} is on {t.device}, the planes on {device}")
 
 
-def new_scratch(npix: int, device) -> torch.Tensor:
-    """The (npix,) int64 winner-key plane of the EXACT and EXACT16 kernels,
-    all ones (empty). Each launch leaves it empty again, so a render
-    allocates one and hands it to every chunk."""
-    return torch.full((npix,), -1, dtype=torch.int64, device=device)
+# int32 words of the tile bin's control block (csrc/bin_tile.cuh struct
+# Control): the pixel-0 aggregate
+CONTROL_WORDS = 4
+# the tile bin's partition (csrc/bin_tile.cuh MAX_TILES, MAX_SPANS,
+# SPAN_BITS): the most tiles of a band of the canvas, the least columns of
+# the table of record counts by tile and stream span, and the bits of a
+# point's offset in its span (a chunk of more than MAX_SPANS << SPAN_BITS
+# points gets one column a span of 2^SPAN_BITS)
+MAX_TILES, MAX_SPANS, SPAN_BITS = 1024, 1024, 17
 
 
-def _scratch(npix: int, scratch, device) -> torch.Tensor:
-    if scratch is None:
-        return new_scratch(npix, device)
-    cuda_lib.check_tensor(scratch, torch.int64, "scratch")
-    if tuple(scratch.shape) != (npix,) or scratch.device != device:
-        raise ValueError(f"scratch must be ({npix},) on {device}, got "
-                         f"{tuple(scratch.shape)} on {scratch.device}")
-    return scratch
+class BinWork(NamedTuple):
+    """The tile bin's work buffers (EXACT and EXACT16 kernels)."""
+
+    # (record_words(points),) int32: the chunk partitioned by tile (a record
+    # is 8 bytes), then the partition's table; contents free
+    records: torch.Tensor
+    control: torch.Tensor  # (CONTROL_WORDS,) int32: all zero between launches
+
+
+def table_words(points: int) -> int:
+    """int32 words behind the records of a chunk of ``points`` points
+    (csrc/bin_tile.cuh tile_bin): the table of record counts by tile and
+    span, the tiles' totals and the buckets' first records."""
+    return (max(MAX_SPANS, -(-points >> SPAN_BITS)) + 2) * MAX_TILES
+
+
+def record_words(points: int) -> int:
+    """int32 words of the records (two a point) and the table of a chunk of
+    ``points`` points."""
+    return 2 * points + table_words(points)
+
+
+def new_work(points: int, device) -> BinWork:
+    """Work buffers for chunks of up to ``points`` points. Each launch
+    leaves the control words zero again and needs nothing of the records'
+    old contents, so a render allocates one and hands it to every chunk
+    (and to every frame of a sequence)."""
+    return BinWork(torch.empty(record_words(points), dtype=torch.int32, device=device),
+                   torch.zeros(CONTROL_WORDS, dtype=torch.int32, device=device))
+
+
+def _work(m: int, work: Optional[BinWork], device) -> BinWork:
+    if work is None:
+        return new_work(m, device)
+    cuda_lib.check_tensor(work.records, torch.int32, "work.records")
+    cuda_lib.check_tensor(work.control, torch.int32, "work.control")
+    if work.records.numel() < record_words(m) or work.control.numel() != CONTROL_WORDS \
+            or work.records.device != device or work.control.device != device:
+        raise ValueError(f"work must hold {record_words(m)} record and {CONTROL_WORDS} "
+                         f"control words on {device}, got {work.records.numel()} on "
+                         f"{work.records.device} and {work.control.numel()} on "
+                         f"{work.control.device}")
+    return work
 
 
 def bin_chunk_kernel(count, packed, flat, packed_update):
@@ -117,7 +165,7 @@ def _exact_check(count, steps, zbuf, flat, z, val):
     return npix, m
 
 
-def bin_chunk_kernel_exact(count, steps, zbuf, flat, z, val, *, scratch=None):
+def bin_chunk_kernel_exact(count, steps, zbuf, flat, z, val, *, work=None):
     """Accumulate one point chunk into EXACT planes with EXACT_KERNEL's
     semantics (see :func:`ops.binning.bin_chunk_exact`, its CPU twin):
     full float32 z and value, the strict z-test, the earliest point on an
@@ -125,23 +173,23 @@ def bin_chunk_kernel_exact(count, steps, zbuf, flat, z, val, *, scratch=None):
 
     ``count`` (int32 u32 bits), ``steps``, ``zbuf`` (float32): (npix,)
     planes. ``flat`` (int32), ``z``, ``val`` (float32): the (M,) stream.
-    ``scratch``: a :func:`new_scratch` plane to reuse (one is allocated if
-    None). A CUDA launch runs ``csrc/bin_exact.cu``.
+    ``work``: a :func:`new_work` to reuse (one is allocated if None). A CUDA
+    launch runs ``csrc/bin_exact.cu``.
     """
     if count.device.type == "cpu":
         return bin_chunk_exact(count, steps, zbuf, flat, z, val)
     npix, m = _exact_check(count, steps, zbuf, flat, z, val)
     if m:
-        key = _scratch(npix, scratch, count.device)
+        work = _work(m, work, count.device)
         cuda_lib.launch("sat_bin_exact", count.device, count.data_ptr(), steps.data_ptr(),
-                        zbuf.data_ptr(), key.data_ptr(), flat.data_ptr(), z.data_ptr(),
-                        val.data_ptr(), m, npix)
+                        zbuf.data_ptr(), work.control.data_ptr(), work.records.data_ptr(),
+                        flat.data_ptr(), z.data_ptr(), val.data_ptr(), m, npix)
         bin_chunk_kernel_exact.launches += 1
     return count, steps, zbuf
 
 
 def bin_chunk_kernel_exact16(count, steps, zbuf, flat, z, val, *, ties: str = "value",
-                             scratch=None):
+                             work=None):
     """Accumulate one point chunk into EXACT planes with EXACT16_KERNEL's
     contract (see :func:`ops.binning.bin_chunk_exact16`, its CPU twin): z
     at 16-bit bucket granularity, the value through float16, bucket ties by
@@ -157,10 +205,11 @@ def bin_chunk_kernel_exact16(count, steps, zbuf, flat, z, val, *, ties: str = "v
         return bin_chunk_exact16(count, steps, zbuf, flat, z, val, ties)
     npix, m = _exact_check(count, steps, zbuf, flat, z, val)
     if m:
-        key = _scratch(npix, scratch, count.device)
+        work = _work(m, work, count.device)
         cuda_lib.launch("sat_bin_exact16", count.device, count.data_ptr(), steps.data_ptr(),
-                        zbuf.data_ptr(), key.data_ptr(), flat.data_ptr(), z.data_ptr(),
-                        val.data_ptr(), m, npix, int(ties == "earliest"))
+                        zbuf.data_ptr(), work.control.data_ptr(), work.records.data_ptr(),
+                        flat.data_ptr(), z.data_ptr(), val.data_ptr(), m, npix,
+                        int(ties == "earliest"))
         bin_chunk_kernel_exact16.launches += 1
     return count, steps, zbuf
 

@@ -141,12 +141,13 @@ _KERNEL_EMIT = (emit.map_emit, emit.map_emit_shared, emit.project_emit)
 _PLAIN_EMIT = (emit.map_emit_plain, emit.map_emit_shared_plain, emit.project_emit_plain)
 
 
-def _chunk_fns(config: Config, strategy: BinStrategy, npix: int, device: torch.device,
+def _chunk_fns(config: Config, strategy: BinStrategy, points: int, device: torch.device,
                plain: bool) -> _ChunkFns:
-    """The emission and bin functions of ``strategy``: the kernels, or with
-    ``plain`` (and for the scatter strategies) their plain twins. The
-    EXACT kernels get one scratch plane for the whole render: each launch
-    leaves it reset, so every frame of a sequence may share it too."""
+    """The emission and bin functions of ``strategy`` for chunks of
+    ``points`` points: the kernels, or with ``plain`` (and for the scatter
+    strategies) their plain twins. The EXACT kernels get one set of work
+    buffers for the whole render: each launch leaves them ready for the
+    next, so every frame of a sequence may share them too."""
     if strategy in _KERNEL_OF:
         strategy, plain = _KERNEL_OF[strategy], True
     kernel, twin = _BINS[strategy]
@@ -155,7 +156,7 @@ def _chunk_fns(config: Config, strategy: BinStrategy, npix: int, device: torch.d
         return _ChunkFns(*_PLAIN_EMIT, functools.partial(twin, **kw))
     if strategy in (BinStrategy.EXACT_KERNEL, BinStrategy.EXACT16_KERNEL) \
             and device.type == "cuda":
-        kw["scratch"] = kernel_binning.new_scratch(npix, device)
+        kw["work"] = kernel_binning.new_work(points, device)
     return _ChunkFns(*_KERNEL_EMIT, functools.partial(kernel, **kw))
 
 
@@ -277,7 +278,7 @@ def render_seeds(config: Config, seeds: torch.Tensor, state: Optional[RenderStat
     if state.device != device:
         raise ValueError(f"seeds are on {device}, the state on {state.device}")
     strategy, kind, shape = _strategy(config, state), state.strategy, state.shape
-    fns = _chunk_fns(config, strategy, config.width * config.height, device, plain)
+    fns = _chunk_fns(config, strategy, lanes * chunk_steps, device, plain)
 
     spec = emit.emit_spec(config, config.angle if angle is None else angle)
     points = seeds.t().contiguous()  # (3, lanes), one lane per column
@@ -428,7 +429,7 @@ def render_seeds_shared(config: Config, seeds: torch.Tensor, angles,
     device = _check_seeds(seeds, lanes)
     strategy = config.resolved_bin_strategy()
     kind, shape = strategy.planes_kind(), (config.height, config.width)
-    fns = _chunk_fns(config, strategy, config.width * config.height, device, plain)
+    fns = _chunk_fns(config, strategy, lanes * chunk_steps, device, plain)
     specs = [emit.emit_spec(config, float(a)) for a in angles]
     blank = _state_to_planes(RenderState.create(config, device=device))
     rows = tuple(p.expand(len(specs), -1).clone() for p in blank)
