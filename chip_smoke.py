@@ -47,12 +47,16 @@ all passed):
    a tile), 1800x2000 and 3840x2160 (more tiles than SMs), 7680x4320 (two
    bands of tiles), a 140M-point chunk with NaN depths (more spans than
    the partition's table has at least), three solar-sail
-   1800x2000 chunks from kernel A in EXACT emission, the tile bins' control
+   1800x2000 chunks from kernel A in EXACT emission, and streams as a
+   caller may hand them (a ragged 203-point stream, views one word past a
+   16-byte boundary and at three offsets), NaN keys
+   of both signs flooding pixel 0 above and below chunk/64, both zeros onto
+   a standing -0.0 at pixel 0; the tile bins' control
    words all zero after every launch; each kernel and twin timed as phase
-   3 times bin_packed, on its own strategy's flagship render and, for the
-   EXACT-plane bins, on solar-sail 1800x2000 with the pixel-0 share, and
+   3 times bin_packed, on its own strategy's flagship render and on
+   solar-sail 1800x2000 with the pixel-0 share, and
    scatter_reduce_ "amax" of the depth stream timed the same
-   way as bin_depth's library yardstick; and what torch's own float16 cast
+   way on both as bin_depth's library yardstick; and what torch's own float16 cast
    does with NaN payloads on the card, beside the kernels' bit conversion;
 8. the paths of the other entry points, 1920x1080, seed 1, 1e8 iterations,
    each with every launch count set to 0 just before it and read after:
@@ -84,11 +88,14 @@ all passed):
     per second of render + colorize + convert + host copy, the device idle
     share of one traced batch of each engine, two frames encoded to PNG;
 13. 10^9 iterations of each path: the flagship, solar-sail 1800x2000, the
-    --depth flagship, exact-kernel and exact16-kernel (both tie modes),
+    --depth flagship and solar-sail 1800x2000 through --depth, exact-kernel
+    and exact16-kernel (both tie modes),
     solar-sail 1800x2000 through exact-kernel and exact16-kernel, each
     rendered once with every launch count at 0 just before it, then three
-    warm synchronized renders for its rate; and a rotation of 100 frames at
-    10^7 through the shared-orbit engine, its launches counted.
+    warm synchronized renders for its rate; one more traced render of each
+    --depth path for the device's busy time and idle share; and a rotation
+    of 100 frames at 10^7 through the shared-orbit engine, its launches
+    counted.
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -375,7 +382,7 @@ def _library_bin_packed(dev, npix: int, planes, chunks, tag: str = "flagship") -
     return parts
 
 
-def _library_bin_depth(dev, npix: int, planes, chunks) -> float:
+def _library_bin_depth(dev, npix: int, planes, chunks, tag: str = "flagship") -> float:
     """bin_depth's function as one PyTorch call on the same chunks, timed
     the same way: scatter_reduce_ "amax" of the float32 z stream into the
     zbuf plane with one more cell, which out-of-bounds points (flat = npix)
@@ -386,7 +393,8 @@ def _library_bin_depth(dev, npix: int, planes, chunks) -> float:
     idx = [(f.long(), z) for f, z in chunks]
     ms = _chunk_ms(lambda p, i, z: (p.scatter_reduce_(0, i, z, "amax"),), (zbuf,), idx)
     mean = sum(ms) / len(ms)
-    print(f"[7] library yardstick: scatter_reduce_ amax of float32 z {mean:.4f} ms a chunk")
+    print(f"[7] library yardstick, {tag}: scatter_reduce_ amax of float32 z {mean:.4f} ms a "
+          f"chunk")
     return mean
 
 
@@ -604,7 +612,11 @@ def _bin_cases(sat, dev, npix: int, m: int, rng) -> dict:
     run or one tile, ties on the edges of runs and tiles, a canvas smaller
     than a tile, canvases of more tiles than the card has SMs and of more
     pixels than one band of tiles, a chunk of more spans than the
-    partition's table has at least, and real solar-sail chunks."""
+    partition's table has at least, and real solar-sail chunks; and streams
+    as a caller may hand them: a ragged stream shorter than one block, views
+    that start off a 16-byte boundary (both at one offset, and at two); NaN
+    keys of both signs flooding pixel 0, and a standing -0.0 at pixel 0
+    meeting a new +0.0."""
     from strange_attractor_tpu_torch.ops import cuda_lib, emit
 
     special = np.array([0.0, -0.0, -1.0, 1.0, np.inf, -np.inf, np.nan, -1e-45, 1e-40,
@@ -625,17 +637,34 @@ def _bin_cases(sat, dev, npix: int, m: int, rng) -> dict:
     def ties(n):
         return chunk(rng.integers(0, 50, n), *tie_z(n))
 
-    def pixel0(share):
-        # pixel 0 mixes escaped points (z = -inf, as kernel A emits them),
-        # NaN and both zeros, and real points that must win by the key
+    def pixel0(share, escaped=(-np.inf,)):
+        # pixel 0 mixes escaped points (z = -inf, as kernel A emits them, or
+        # NaN keys of both signs), NaN and both zeros, and real points that
+        # must win by the key
         flat = rng.integers(0, npix, m)
         at0 = rng.random(m) < share
         flat[at0] = 0
         z = rng.normal(0, 0.5, m).astype(np.float32)
-        z[at0 & (rng.random(m) < 0.6)] = -np.inf
+        out = at0 & (rng.random(m) < 0.6)
+        z[out] = rng.choice(np.array(escaped, np.float32), int(out.sum()))
         odd = at0 & (rng.random(m) < 0.01)
         z[odd] = rng.choice(special, int(odd.sum()))
         return [chunk(flat, z)]
+
+    def shifted(c, words):
+        # the chunk's streams as views starting words[k] words past the
+        # allocator's 512-byte boundary
+        out = []
+        for t, w in zip(c, words):
+            buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=dev)
+            out.append(buf[w:w + t.numel()])
+            out[-1].copy_(t)
+        return tuple(out)
+
+    nans = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF, 0xFFC12345, 0x7FC00001],
+                    np.uint32).view(np.float32)
+    zero_flat = rng.integers(0, 100, m)
+    zero_flat[rng.random(m) < 0.3] = 0
 
     flat = rng.integers(0, npix, m)
     flat[rng.random(m) < 0.05] = npix
@@ -667,6 +696,15 @@ def _bin_cases(sat, dev, npix: int, m: int, rng) -> dict:
         "3 chunks onto a standing state": [ties(m), chunk(rng.integers(0, npix + 1, m)),
                                            chunk(rng.integers(0, 64, m), rng.choice(special, m))],
         "ragged 1000003 points": [chunk(rng.integers(0, npix + 1, 1_000_003))],
+        "ragged 203 points, shorter than one block": [chunk(rng.integers(0, npix + 1, 203))],
+        "streams one word past a 16-byte boundary": [
+            shifted(chunk(rng.integers(0, npix + 1, m - 3)), (1, 1, 1))],
+        "flat, z and val at three offsets": [
+            shifted(chunk(rng.integers(0, npix + 1, m - 1)), (1, 2, 3))],
+        "pixel 0 mixed, NaN keys of both signs, 30% (above chunk/64)": pixel0(0.30, nans),
+        "pixel 0 mixed, NaN keys of both signs, 1% (below chunk/64)": pixel0(0.01, nans),
+        "pixel 0 mixed, both zeros onto a standing -0.0": [chunk(zero_flat, rng.choice(
+            np.array([0.0, -0.0, -0.0, -1.5], np.float32), m))],
     }
     cases = {name: (npix, chunks) for name, chunks in cases.items()}
     cases["37x23 canvas, smaller than a tile"] = (small, [
@@ -677,21 +715,24 @@ def _bin_cases(sat, dev, npix: int, m: int, rng) -> dict:
     cases["7680x4320 canvas, two bands"] = (4 * uhd, [chunk(rng.integers(0, 4 * uhd + 1, m))])
     cases["solar-sail 1800x2000 stream"] = (wide, [
         emit.map_emit(spec, pts, CHUNK, kind=sat.BinStrategy.EXACT) for _ in range(3)])
-    # more points than the table's 1024 spans of 2^17 hold for the EXACT and
-    # EXACT16-earliest kernels, made on the card: z ties on every pixel, the
-    # earliest far apart, and on a third of the pixels one NaN depth, which
-    # takes EXACT's pixel and blocks the whole chunk there
-    gen = torch.Generator(device=dev).manual_seed(5)
-    long = LONG_CHUNK
-    long_flat = torch.randint(0, small + 1, (long,), generator=gen, device=dev,
-                              dtype=torch.int32)
-    long_z = torch.randint(-2, 3, (long,), generator=gen, device=dev).float() * 0.25
-    late = torch.randint(max(0, long - (1 << 20)), long, (300,), generator=gen, device=dev)
-    long_z[late[long_flat[late] % 3 == 0]] = float("nan")
-    cases[f"long chunk of {long} points on 37x23, with NaN depths"] = (small, [(
-        long_flat, long_z,
-        torch.randint(0, 8, (long,), generator=gen, device=dev).float() / 8)])
+    cases[f"long chunk of {LONG_CHUNK} points on 37x23, with NaN depths"] = (
+        small, [_long_chunk(dev, small)])
     return cases
+
+
+def _long_chunk(dev, npix: int) -> tuple:
+    """(flat, z, val) of LONG_CHUNK points over ``npix`` pixels, made on the
+    card: more points than the table's 1024 spans of 2^17 hold for the EXACT
+    and EXACT16-earliest kernels, z ties on every pixel, the earliest far
+    apart, and on a third of the pixels one NaN depth, which takes EXACT's
+    pixel and blocks the whole chunk there."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = LONG_CHUNK
+    flat = torch.randint(0, npix + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    z = torch.randint(-2, 3, (n,), generator=gen, device=dev).float() * 0.25
+    late = torch.randint(max(0, n - (1 << 20)), n, (300,), generator=gen, device=dev)
+    z[late[flat[late] % 3 == 0]] = float("nan")
+    return flat, z, torch.randint(0, 8, (n,), generator=gen, device=dev).float() / 8
 
 
 def _standing(dev, npix: int, rng, blank: bool):
@@ -706,6 +747,7 @@ def _standing(dev, npix: int, rng, blank: bool):
     zbuf[:50] = (rng.integers(-2, 3, 50) * 0.25).astype(np.float32)
     zbuf[50:80] = -0.0
     zbuf[80:100] = 0.0
+    zbuf[0] = -0.0
     return tuple(torch.from_numpy(a).to(dev) for a in (
         rng.integers(0, 1000, npix).astype(np.int32), rng.random(npix).astype(np.float32), zbuf))
 
@@ -785,14 +827,17 @@ def phase_bins(sat, dev) -> dict:
         row = _honest_bin(sat, dev, cfg, kernel, twin, f"[7] {name} flagship")
         out[name] = {"err": 0.0, **_public(row),
                      "long_chunk": {"points": LONG_CHUNK, "ms": long_ms[name]}}
+        sail_cfg = _solar_sail(sat, 1_000_000_000, **strategies[name])
+        sail = _honest_bin(sat, dev, sail_cfg, kernel, twin, f"[7] {name} solar-sail")
+        out[name]["solar_sail"] = _public(sail)
         if depth:
             out[name]["library_ms"] = _library_bin_depth(dev, npix, row["planes"], row["chunks"])
+            out[name]["solar_sail"]["library_ms"] = _library_bin_depth(
+                dev, sail_cfg.width * sail_cfg.height, sail["planes"], sail["chunks"],
+                "solar-sail")
         else:
             out[name].update(library_ms=None, library_note=LIBRARY_NOTE)
-            sail = _honest_bin(sat, dev, _solar_sail(sat, 1_000_000_000, **strategies[name]),
-                               kernel, twin, f"[7] {name} solar-sail")
-            out[name]["solar_sail"] = {**_public(sail), "library_ms": None,
-                                       "library_note": LIBRARY_NOTE}
+            out[name]["solar_sail"].update(library_ms=None, library_note=LIBRARY_NOTE)
     return out
 
 
@@ -1059,6 +1104,8 @@ def phase_renders(sat, dev, card: str) -> dict:
         "flagship": (_flagship(sat, 10**9), ("map_emit", "bin_packed")),
         "solar_sail": (_solar_sail(sat, 10**9), ("map_emit", "bin_packed")),
         "depth": (_flagship(sat, 10**9, render=sat.RenderKind.DEPTH), ("map_emit", "bin_depth")),
+        "solar_sail_depth": (_solar_sail(sat, 10**9, render=sat.RenderKind.DEPTH),
+                             ("map_emit", "bin_depth")),
         "exact": (_flagship(sat, 10**9, bin_strategy=B.EXACT_KERNEL), ("map_emit", "bin_exact")),
         "exact16_value": (_flagship(sat, 10**9, bin_strategy=B.EXACT16_KERNEL),
                           ("map_emit", "bin_exact16")),
@@ -1071,6 +1118,18 @@ def phase_renders(sat, dev, card: str) -> dict:
     }
     out = {name: _render_rates(sat, dev, cfg, f"[13] {name}", card, kernels)
            for name, (cfg, kernels) in paths.items()}
+    # what the card does in a --depth render: its busy time traced, against
+    # the traced wall and against the untraced renders' fastest wall
+    for name in ("depth", "solar_sail_depth"):
+        cfg = paths[name][0]
+        busy, wall = _idle_share(lambda: sat.render(cfg, device=dev))
+        lanes, chunk, nchunks = sat.plan_schedule(cfg)
+        fastest = lanes * chunk * nchunks / max(out[name]["iters_per_s"]) * 1e3
+        idle = "not measured (no device activity in the trace)" if busy is None else \
+            (f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.4f} of the traced wall, "
+             f"{1 - busy / fastest:.4f} of the fastest untraced render ({fastest:.2f} ms)")
+        print(f"[13] {name}, one traced render: wall {wall:.2f} ms, {idle}")
+        out[name]["trace"] = {"busy_ms": busy, "wall_ms": wall, "fastest_untraced_ms": fastest}
     counters = _zero_counters()
     sat.render_sequence_shared(_flagship(sat, 10_000_000), [3.6 * f for f in range(100)],
                                transparent=False, eight_bit=True, device=dev)

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Per-chunk times of the main path's two kernels and of the EXACT-plane
-bins, and 10^9 render rates, of one version of the PyTorch/CUDA port, for
-comparing two versions on one card.
+"""Per-chunk times of the main path's two kernels, of the depth bin and of
+the EXACT-plane bins, and 10^9 render rates, of one version of the
+PyTorch/CUDA port, for comparing two versions on one card.
 
-    python3 perf_probe.py [--root DIR]
+    python3 perf_probe.py [--root DIR] [--only GROUP[,GROUP...]]
 
 ``--root DIR`` imports ``strange_attractor_tpu_torch`` from DIR instead of
 this checkout, for example an older commit's package unpacked with
 ``git archive <commit> strange_attractor_tpu_torch | tar -x -C DIR``; its
-kernels build under DIR's own ``build/``. Two runs may land on two cards, so
+kernels build under DIR's own ``build/``. ``--only`` runs the named groups
+(``map_emit``, ``bin_packed``, ``bin_depth``, ``bin_exact``, ``render``)
+and skips the others. Two runs may land on two cards, so
 compare versions only inside one machine session, in turns: old, new, new,
 old. Every measurement is chip_smoke.py's own, made on the imported package:
 
@@ -19,7 +21,12 @@ old. Every measurement is chip_smoke.py's own, made on the imported package:
 - ``bin_packed``: bin_packed and its twin on the flagship and on solar-sail
   1800x2000 (``chip_smoke._honest_bin``: 20 distinct consecutive chunks onto
   the state of the first 100);
-- ``bin_exact``, ``bin_exact16_value``, ``bin_exact16_earliest``: the same
+- ``bin_depth``: the same for the DEPTH_KERNEL bin on the ``--depth``
+  flagship and solar-sail renders, with ``library_ms``, scatter_reduce_
+  "amax" on the same chunks (``chip_smoke._library_bin_depth``), and one
+  cold call on chip_smoke's 140M-point chunk over 37x23 (``long_chunk``);
+- ``bin_exact``, ``bin_exact16_value``, ``bin_exact16_earliest`` (group
+  ``bin_exact``): the same
   for the EXACT_KERNEL and EXACT16_KERNEL bins, each on its own strategy's
   flagship and solar-sail renders. A package from before the tile bin takes
   its once-per-render scratch plane, a later one its work buffers;
@@ -29,8 +36,8 @@ old. Every measurement is chip_smoke.py's own, made on the imported package:
   (``chip_smoke._cuda_kernels``; the tile bin starts five);
 - ``render``: a 10^9 render's launches and the synchronized rates of three
   warm 10^9 renders of the flagship and of solar-sail 1800x2000, through
-  KERNEL, EXACT_KERNEL and EXACT16_KERNEL (ties value)
-  (``chip_smoke._render_rates``).
+  KERNEL, DEPTH_KERNEL (``--depth``), EXACT_KERNEL and EXACT16_KERNEL (ties
+  value) (``chip_smoke._render_rates``).
 
 It prints, as the last line of its output, one JSON object of these and the
 card's name and power limit. It imports no JAX and needs one card.
@@ -43,7 +50,11 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
+
+
+GROUPS = ("map_emit", "bin_packed", "bin_depth", "bin_exact", "render")
 
 
 def _exact_bins(cs, sat, kb, binning, cfg, dev) -> dict:
@@ -69,7 +80,12 @@ def _exact_bins(cs, sat, kb, binning, cfg, dev) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", help="directory holding the strange_attractor_tpu_torch to time")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups to run, of " + ", ".join(GROUPS))
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        ap.error(f"--only takes groups of {', '.join(GROUPS)}, got {args.only}")
     if not torch.cuda.is_available():
         print("perf_probe: torch.cuda is not available; this probe needs an NVIDIA card",
               file=sys.stderr)
@@ -89,32 +105,56 @@ def main() -> int:
     card = cs._card_line()
     out = {"card": card, "package": str(Path(sat.__file__).resolve().parent)}
     print(f"card {card}; package {out['package']}")
-    for key, cfg, fn, reps in (("map_emit_packed_ms", cs._flagship(sat, 10**9), emit.map_emit, 50),
-                               ("map_emit_shared_ms", cs._flagship(sat, 10**7),
-                                emit.map_emit_shared, 20)):
+    emits = (("map_emit_packed_ms", cs._flagship(sat, 10**9), emit.map_emit, 50),
+             ("map_emit_shared_ms", cs._flagship(sat, 10**7), emit.map_emit_shared, 20))
+    for key, cfg, fn, reps in emits if "map_emit" in only else ():
         spec = emit.emit_spec(cfg, 0.0)
         pts = cs._warm_lanes(sat, dev, cfg, spec)
         chunk = sat.plan_schedule(cfg)[1]
         out[key] = cs._time_ms(lambda: fn(spec, pts, chunk), reps=reps)
         print(f"{key} {pts.shape[1]} x {chunk}: {out[key]:.4f} ms")
-    paths = {"flagship": cs._flagship(sat, 10**9), "solar_sail": cs._solar_sail(sat, 10**9)}
-    out["bin_packed"] = {name: cs._public(cs._honest_bin(sat, dev, cfg, kb.bin_chunk_kernel,
-                                                         bin_chunk_packed, f"bin_packed {name}"))
-                         for name, cfg in paths.items()}
+    makers = (("flagship", cs._flagship), ("solar_sail", cs._solar_sail))
+    if "bin_packed" in only:
+        out["bin_packed"] = {
+            path: cs._public(cs._honest_bin(sat, dev, make(sat, 10**9), kb.bin_chunk_kernel,
+                                            bin_chunk_packed, f"bin_packed {path}"))
+            for path, make in makers}
     strategies = cs._bin_strategies(sat)
-    for name in ("bin_exact", "bin_exact16_value", "bin_exact16_earliest"):
+    if "bin_depth" in only:
+        out["bin_depth"] = {}
+        for path, make in makers:
+            cfg = make(sat, 10**9, **strategies["bin_depth"])
+            row = cs._honest_bin(sat, dev, cfg, kb.bin_chunk_kernel_depth, binning.bin_chunk_depth,
+                                 f"bin_depth {path}")
+            out["bin_depth"][path] = {**cs._public(row), "library_ms": cs._library_bin_depth(
+                dev, cfg.width * cfg.height, row["planes"], row["chunks"], path)}
+        # chip_smoke's long chunk on 37x23 onto a standing plane, one cold call
+        small = 37 * 23
+        plane = cs._standing(dev, small, np.random.default_rng(3), blank=False)[2]
+        flat, z, _ = cs._long_chunk(dev, small)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        kb.bin_chunk_kernel_depth(plane, flat, z)
+        end.record()
+        torch.cuda.synchronize()
+        out["bin_depth"]["long_chunk"] = {"points": flat.numel(), "ms": start.elapsed_time(end)}
+        print(f"bin_depth long chunk of {flat.numel()} points on 37x23: "
+              f"{out['bin_depth']['long_chunk']['ms']:.4f} ms, one cold call")
+    exact = ("bin_exact", "bin_exact16_value", "bin_exact16_earliest")
+    for name in exact if "bin_exact" in only else ():
         out[name] = {}
-        for path, make in (("flagship", cs._flagship), ("solar_sail", cs._solar_sail)):
+        for path, make in makers:
             cfg = make(sat, 10**9, **strategies[name])
             kernel, twin = _exact_bins(cs, sat, kb, binning, cfg, dev)[name]
             row = cs._honest_bin(sat, dev, cfg, kernel, twin, f"{name} {path}")
             out[name][path] = cs._public(row)
     B = sat.BinStrategy
-    renders = {"": ({}, "bin_packed"), "_exact": (dict(bin_strategy=B.EXACT_KERNEL), "bin_exact"),
+    renders = {"": ({}, "bin_packed"), "_depth": (dict(render=sat.RenderKind.DEPTH), "bin_depth"),
+               "_exact": (dict(bin_strategy=B.EXACT_KERNEL), "bin_exact"),
                "_exact16_value": (dict(bin_strategy=B.EXACT16_KERNEL), "bin_exact16")}
     out["render"] = {}
-    for suffix, (kw, counter) in renders.items():
-        for path, make in (("flagship", cs._flagship), ("solar_sail", cs._solar_sail)):
+    for suffix, (kw, counter) in renders.items() if "render" in only else ():
+        for path, make in makers:
             out["render"][path + suffix] = cs._render_rates(
                 sat, dev, make(sat, 10**9, **kw), f"render {path}{suffix}", card,
                 ("map_emit", counter))

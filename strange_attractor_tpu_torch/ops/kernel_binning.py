@@ -11,7 +11,9 @@ use them two ways:
   straight into the planes, one thread per point, the pixel-0 flood reduced
   inside each block first;
 - ``csrc/bin_depth.cu`` (:func:`bin_chunk_kernel_depth`): the mono-u32 max
-  of the depth, in place on the float32 plane, one thread per point;
+  of the depth, in place on the float32 plane, one thread per point, the
+  plane read through L1 and an atomic only where a point raises its pixel,
+  the pixel-0 flood reduced inside each block first;
 - ``csrc/bin_exact.cu`` (:func:`bin_chunk_kernel_exact`) and
   ``csrc/bin_exact16.cu`` (:func:`bin_chunk_kernel_exact16`): the tile bin
   of ``csrc/bin_tile.cuh``. A counting sort partitions the chunk by canvas
@@ -29,8 +31,6 @@ its kernel on the current stream, updates the planes IN PLACE, returns
 them and adds one to its ``launches`` count (one wrapper call is one
 launch of the count, whatever number of CUDA kernels it starts: the tile
 bin starts five a band of the canvas). It raises when it cannot launch.
-``bin_depth.cu`` still meets the pixel-0 flood point by point, behind its
-read-before-atomic skip (ROADMAP).
 """
 
 from __future__ import annotations

@@ -186,7 +186,9 @@ def _check_state(config: Config, state: RenderState) -> None:
     resolve_device(state.device)
     if state.shape != (config.height, config.width):
         raise ValueError(f"state canvas {state.shape} does not match config "
-                         f"{(config.height, config.width)}")
+                         f"{(config.height, config.width)}; use state.set_width_height() "
+                         "for a reset state of the new size (the reference's resize "
+                         "likewise discards the accumulation, src/lib.rs:666-675)")
 
 
 def _progressive_nonce(state: RenderState) -> int:
@@ -288,9 +290,13 @@ def render_seeds(config: Config, seeds: torch.Tensor, state: Optional[RenderStat
     t0 = time.perf_counter()
     if config.warmup:
         fns.map_emit(spec, points, config.warmup, emit=False)
+    # a line after each full group of min(nchunks, PROGRESS_EVERY) chunks,
+    # the last one included, none after the remainder: the JAX package's
+    # lines, one a dispatch group (render.py:574-578, :613-617)
+    group = min(nchunks, PROGRESS_EVERY)
     for done in range(1, nchunks + 1):
         planes = fns.bin(*planes, *fns.map_emit(spec, points, chunk_steps, kind=kind))
-        if not config.silent and done % PROGRESS_EVERY == 0 and done < nchunks:
+        if not config.silent and done % group == 0 and done <= nchunks - nchunks % group:
             print(f"Iteration complete, {nchunks - done} left to go.")
     if not config.silent:
         if device.type == "cuda":

@@ -89,6 +89,16 @@ class RenderState(NamedTuple):
             strategy = config.resolved_bin_strategy()
         return cls.blank((config.height, config.width), strategy, device)
 
+    def set_width_height(self, width: int, height: int) -> "RenderState":
+        """Fit this state to a canvas of ``width`` x ``height`` (reference
+        ``Runtime::set_width_height``, src/lib.rs:666-675): the same object
+        when the size already matches (accumulation continues), otherwise a
+        blank state of the new size with the same strategy, on this state's
+        device -- a resize discards the accumulation, as in the reference."""
+        if self.shape == (height, width):
+            return self
+        return RenderState.blank((height, width), self.strategy, self.device)
+
     def reset(self) -> "RenderState":
         """Zeroed state with the same shape, strategy and device."""
         return RenderState.blank(self.shape, self.strategy, self.device)

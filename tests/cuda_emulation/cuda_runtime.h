@@ -1,5 +1,6 @@
-// CPU emulation of the CUDA subset the tile bin (csrc/bin_tile.cuh) uses, for
-// tests/test_torch_tile_emulation.py. A block's CUDA threads are fibers of one
+// CPU emulation of the CUDA subset the tile bin (csrc/bin_tile.cuh) and the
+// depth bin (csrc/bin_depth.cu) use, for tests/test_torch_tile_emulation.py
+// and tests/test_torch_depth_emulation.py. A block's CUDA threads are fibers of one
 // OS thread, run round-robin: a fiber runs until it waits at a barrier (the
 // block's, or its warp's inside a vote, shuffle or reduction) and the next one
 // takes over, so a run is deterministic and an atomic is a plain update.
@@ -34,6 +35,13 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaDevAttrMultiProcessorCoun
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = EMU_SMS; return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
+#ifndef EMU_RESIDENT
+#define EMU_RESIDENT 2
+#endif
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = EMU_RESIDENT;
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 namespace emu {
 constexpr size_t STACK = 64 << 10;
@@ -137,6 +145,13 @@ inline unsigned __reduce_min_sync(unsigned, unsigned v) {
     return r;
   });
 }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return emu::collect<unsigned>(v, [](unsigned long long* s) {
+    unsigned r = 0;
+    for (int l = 0; l < 32; ++l) r = (unsigned)s[l] > r ? (unsigned)s[l] : r;
+    return r;
+  });
+}
 inline unsigned __shfl_up_sync(unsigned, unsigned v, int d) {
   int lane = threadIdx.x & 31;
   return emu::collect<unsigned>(
@@ -152,5 +167,6 @@ template <class T> T atomicAdd(T* p, T v) { T old = *p; *p = old + v; return old
 template <class T> T atomicMin(T* p, T v) { T old = *p; if (v < old) *p = v; return old; }
 template <class T> T atomicMax(T* p, T v) { T old = *p; if (v > old) *p = v; return old; }
 template <class T> T __ldcs(const T* p) { return *p; }
+template <class T> T __ldca(const T* p) { return *p; }
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
