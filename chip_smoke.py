@@ -29,7 +29,11 @@ all passed):
    same chunks of both as the library yardstick;
 4. the flagship slice: poisson-saturne 1920x1080 Gas, 8-bit, seed 1, 1e8
    iterations, render -> colorize -> convert -> one host copy -> PNG, with
-   both launch counters > 0 and a non-blank image; iters/s and wall time;
+   both launch counters > 0 and a non-blank image; iters/s and wall time,
+   split into render, colorize + convert, host copy and PNG encode, for
+   the process's first frame and for a second, warm one; which
+   PNG encoder ran (native or stdlib) and that frame's encode through the
+   package's writer against the stdlib route;
 5. the same seeded render at 1e6 iterations through the kernels and through
    the plain twins on the card: identical planes and PNG bytes;
 6. kernel A in DEPTH (flat, z) and EXACT (flat, z, val) emission against
@@ -86,7 +90,8 @@ all passed):
     render_sequence_shared (auto batch) and render_sequence_batched, each
     with every launch count set to 0 just before it and read after; frames
     per second of render + colorize + convert + host copy, the device idle
-    share of one traced batch of each engine, two frames encoded to PNG;
+    share of one traced batch of each engine, and all 120 frames encoded to
+    PNG through the CLI's encoder threads, timed;
 13. 10^9 iterations of each path: the flagship, solar-sail 1800x2000, the
     --depth flagship and solar-sail 1800x2000 through --depth, exact-kernel
     and exact16-kernel (both tie modes),
@@ -95,7 +100,22 @@ all passed):
     warm synchronized renders for its rate; one more traced render of each
     --depth path for the device's busy time and idle share; and a rotation
     of 100 frames at 10^7 through the shared-orbit engine, its launches
-    counted.
+    counted;
+14. kernel A for each RK4 map (lorenz, rossler, halvorsen, thomas;
+    csrc/map_emit_rk4.cu) and for the Sprott map again against its plain
+    twin, streams and lane state bit-identical after the warm-up and each
+    of 2 chunks in every mode (PACKED, DEPTH, EXACT, SHARED, SHARED_DEPTH):
+    32768 lanes x 128 steps, 16384 x 77, a ragged 1000 x 77 at another
+    angle; then each map's PACKED chunk timed at 32768 x 128;
+15. each of the nine presets through the CLI entry point at 1920x1080, 1e8
+    iterations, 8-bit PNG, seed 1, with every launch count at 0 just before
+    it: launches > 0 and a lit image; then 1e6 renders of each of the seven
+    the port gained (the RK4 four and the three discovered Sprott maps)
+    through the kernels and the plain twins, identical planes, and 2e5 --depth,
+    exact-kernel and two-frame shared-orbit renders of the RK4 presets the
+    same way;
+16. 10^9 iterations of each RK4 preset: launches counted, three warm
+    synchronized renders for the rate.
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -104,7 +124,9 @@ run (``launches``) and in phase 13's 10^9 iterations (``launches_per_1e9``; one
 wrapper call is one launch; for a bin ``cuda_kernels_per_launch`` says how
 many CUDA kernels it started, counted in a trace of the timed chunks, and
 ``cuda_kernels_us`` each one's mean time), and a PyTorch yardstick (``library_ms``, or null with
-``library_note``).
+``library_note``); kernel A has a row per RK4 map beside the Sprott one.
+The line before it holds the encoder that ran, the 1e8 frame's wall split
+and the rotation's encode time.
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -113,11 +135,13 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -476,13 +500,21 @@ def _flagship(sat, iterations: int, **kw):
         colors=sat.Colors(brightness=sat.BrightnessConstants(offset=-0.25)), **kw)
 
 
-def _deliver(sat, cfg, state, out_base: Path):
+def _deliver(sat, cfg, state, out_base: Path, times: Optional[dict] = None):
     """colorize -> 8-bit conversion on the card -> one host copy -> PNG;
-    returns (path, host image)."""
+    returns (path, host image). ``times`` gets the seconds of each stage."""
     from strange_attractor_tpu_torch.utils.export import convert_format_device, to_host, write_image
 
-    image = to_host(convert_format_device(sat.colorize(cfg, state), False, True))
-    return write_image(out_base, image, transparent=False, eight_bit=True), image
+    t0 = time.perf_counter()
+    image = convert_format_device(sat.colorize(cfg, state), False, True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host = to_host(image)
+    t2 = time.perf_counter()
+    path = write_image(out_base, host, transparent=False, eight_bit=True)
+    if times is not None:
+        times.update(colorize_convert=t1 - t0, host_copy=t2 - t1, png=time.perf_counter() - t2)
+    return path, host
 
 
 def _counters() -> dict:
@@ -522,7 +554,8 @@ def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -
     state = sat.render(cfg, device=dev)
     torch.cuda.synchronize()
     t_render = time.perf_counter() - t0
-    path, img = _deliver(sat, cfg, state, out_base)
+    split = {"render": t_render}
+    path, img = _deliver(sat, cfg, state, out_base, split)
     wall = time.perf_counter() - t0
     launches = _require_launches(tag, counters, kernels)
     if state.count is not None:
@@ -537,12 +570,22 @@ def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -
           f"wrote {path.stat().st_size} bytes")
     print(f"{tag} render {t_render:.4f} s = {executed / t_render:.4e} iters/s; end-to-end wall "
           f"{wall:.4f} s (render + colorize + convert + host copy + PNG) on {card}")
-    return {"launches": launches, "t_render": t_render, "wall": wall, "executed": executed}
+    print(f"{tag} wall split: render {split['render']:.4f} s, colorize + convert "
+          f"{split['colorize_convert']:.4f} s, host copy {split['host_copy']:.4f} s, PNG encode "
+          f"{split['png']:.4f} s ({_encoder()} encoder)")
+    return {"launches": launches, "t_render": t_render, "wall": wall, "executed": executed,
+            "split": split, "image": img}
 
 
 def phase_slice(sat, dev, out_dir: Path, card: str) -> dict:
-    return _drive(sat, dev, _flagship(sat, 100_000_000), out_dir / "frame", card, "[4] flagship",
-                  ("map_emit", "bin_packed"))
+    """The flagship frame as the CLI's fresh process meets it (each torch
+    op's first call on the card included), then once more, warm."""
+    run = _drive(sat, dev, _flagship(sat, 100_000_000), out_dir / "frame", card, "[4] flagship",
+                 ("map_emit", "bin_packed"))
+    warm = _drive(sat, dev, _flagship(sat, 100_000_000), out_dir / "frame", card,
+                  "[4] flagship, warm", ("map_emit", "bin_packed"))
+    run["split"] = {"first": run["split"], "warm": warm["split"]}
+    return run
 
 
 def phase_twins(sat, dev, out_dir: Path) -> None:
@@ -1060,15 +1103,28 @@ def phase_sequence_cell(sat, dev, out_dir: Path, card: str) -> dict:
             f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.4f}"
         print(f"[12] {name} orbit, one traced batch of {batch} frames: wall {wall:.2f} ms, {idle}")
         runs[name + "_trace"] = {"busy_ms": busy, "wall_ms": wall}
-    # two frames to PNG: encoding all 120 would take the host tens of seconds
+    # all 120 frames to PNG through the CLI's encoder threads
+    from strange_attractor_tpu_torch import cli
+
+    seq_dir = out_dir / "rotation"
+    seq_dir.mkdir()
+    paths = [seq_dir / f"frame{f}" for f in range(len(angles))]
+    t0 = time.perf_counter()
+    cli._write_frames(zip(out["shared"], paths), lambda path, image: write_image(
+        path, image, transparent=False, eight_bit=True, announce=False))
+    encode = time.perf_counter() - t0
+    nbytes = sum(p.with_suffix(".png").stat().st_size for p in paths)
+    print(f"[12] {len(angles)} rotation frames encoded to PNG on {cli.ENCODERS} encoder threads "
+          f"({_encoder()} encoder) in {encode:.4f} s = {len(angles) / encode:.4f} frames/s, "
+          f"{nbytes} bytes, host of {os.cpu_count()} cores")
+    runs["encode"] = {"s": encode, "frames_per_s": len(angles) / encode, "encoder": _encoder()}
     for f in (0, len(angles) // 2):
         img = out["shared"][f]
         lit = float((img.max(axis=-1) > 0).mean())
         if not lit > 0.10:
             raise AssertionError(f"[12] shared frame {f} nearly blank: lit fraction {lit}")
-        path = write_image(out_dir / f"seq_{f}", img, transparent=False, eight_bit=True)
         print(f"[12] shared frame {f} at {angles[f]} degrees: lit {lit:.3f}, "
-              f"{path.stat().st_size} bytes")
+              f"{paths[f].with_suffix('.png').stat().st_size} bytes")
     return runs
 
 
@@ -1140,6 +1196,188 @@ def phase_renders(sat, dev, card: str) -> dict:
     return out
 
 
+def _encoder() -> str:
+    from strange_attractor_tpu_torch.utils import native
+
+    return native.encoder()
+
+
+def phase_encoder(img: np.ndarray) -> dict:
+    """The 10^8 flagship frame's PNG encode through the package's writer
+    (the native filter and parallel deflate when they built) and through
+    the stdlib fallback's route (numpy filter, one zlib stream); the two
+    must hold the same filtered scanlines."""
+    import zlib
+
+    from strange_attractor_tpu_torch.utils import export
+
+    enc = _encoder()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        data = export.png_bytes(img)
+    native_ms = (time.perf_counter() - t0) / 3 * 1e3
+    rows = np.ascontiguousarray(img).reshape(img.shape[0], -1)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        filtered = export._filter_scanlines_numpy(rows, img.shape[-1])
+        stdlib = zlib.compress(filtered, 6)
+    stdlib_ms = (time.perf_counter() - t0) / 2 * 1e3
+    idat = data[data.index(b"IDAT") + 4:data.rindex(b"IEND") - 8]
+    if zlib.decompress(idat) != filtered or zlib.decompress(stdlib) != filtered:
+        raise AssertionError("[4] the encoders' scanlines differ")
+    print(f"[4] PNG encoder {enc}: the 1e8 flagship frame {img.shape} encodes in "
+          f"{native_ms:.2f} ms through the package's writer, {stdlib_ms:.2f} ms through the "
+          f"stdlib route (numpy filter + zlib.compress); {len(data)} bytes of PNG, {len(stdlib)} of "
+          f"the stdlib's zlib stream; host of {os.cpu_count()} cores")
+    return {"encoder": enc, "png_ms": native_ms, "stdlib_ms": stdlib_ms}
+
+
+RK4_PRESETS = ("lorenz", "rossler", "halvorsen", "thomas")
+# iterations of each new preset's frame through the CLI (phase 15)
+PRESET_ITERS = 100_000_000
+NEW_PRESETS = RK4_PRESETS + ("aurora-veil", "orchid-ribbon", "delta-kite")
+# float32 operations of one map step, counted from csrc/map_emit.cuh: the
+# Sprott map 60 (EMIT_OPS below); an RK4 step is four derivatives, three
+# stage points (2 ops a component), the weighted sum (4 a component
+# for k2 and k3, then k4, h/6 and x: 3) -- 39 ops -- plus the derivatives:
+# Lorenz 8, Rossler 7, Halvorsen 22 (with the negated a), Thomas 108 (three
+# sin_f32 of 34 ops: the reduction 13, the polynomials 16 and 1, the
+# quadrant's selects and sign 4; and b x and the difference)
+MAP_OPS = {"sprott": 60, "lorenz": 39 + 4 * 8, "rossler": 39 + 4 * 7,
+           "halvorsen": 39 + 4 * 22, "thomas": 39 + 4 * 108}
+# (lanes, steps, angle): the one-thread-per-lane kernel at the flagship
+# chunk, the 32-lane ring with a partial last tile, and a ragged 1000 lanes
+# on the 16-lane ring
+RK4_SHAPES = ((LANES, CHUNK, 0.0), (16384, 77, 0.3), (1000, 77, 0.7))
+
+
+def phase_rk4_kernel_a(sat, dev) -> dict:
+    """Kernel A for each RK4 map, and the Sprott map again, against its
+    plain twin in all six modes at every launcher shape; then the PACKED
+    chunk of each map timed at the flagship shape."""
+    from strange_attractor_tpu_torch.ops import emit
+
+    B = sat.BinStrategy
+    kinds = (("packed", B.PACKED, False), ("depth", B.DEPTH, False), ("exact", B.EXACT, False),
+             ("shared", B.PACKED, True), ("shared-depth", B.DEPTH, True))
+    err, rows = 0.0, {}
+    rng = np.random.default_rng(14)
+    for preset in ("poisson-saturne",) + RK4_PRESETS:
+        cfg = sat.presets.by_name(preset, width=W, height=H)
+        for lanes, steps, angle in RK4_SHAPES:
+            spec = emit.emit_spec(cfg, angle)
+            tag = f"[14] {preset} {lanes} x {steps}"
+            seeds = torch.from_numpy((rng.random((3, lanes)) * 0.1).astype(np.float32)).to(dev)
+            pk, pp = seeds.clone(), seeds.clone()
+            emit.map_emit(spec, pk, cfg.warmup, emit=False)
+            emit.map_emit_plain(spec, pp, cfg.warmup, emit=False)
+            err = max(err, _check_equal(f"{tag} warm-up state", pk, pp))
+            for name, kind, shared in kinds:
+                k, q = pk.clone(), pp.clone()
+                for c in range(2):
+                    if shared:
+                        got = emit.map_emit_shared(spec, k, steps, kind=kind)
+                        want = emit.map_emit_shared_plain(spec, q, steps, kind=kind)
+                    else:
+                        got = emit.map_emit(spec, k, steps, kind=kind)
+                        want = emit.map_emit_plain(spec, q, steps, kind=kind)
+                    err = max(err, _check_streams(f"{tag} {name} chunk {c}", got, want),
+                              _check_equal(f"{tag} {name} chunk {c} state", k, q))
+                if name == "packed":
+                    flat = got[0]
+            print(f"{tag}, angle {angle}: warm-up + 2 chunks bit-identical in all six modes "
+                  f"(on the canvas {float((flat < W * H).float().mean()):.3f}, pixel-0 share "
+                  f"{float((flat == 0).float().mean()):.3f})")
+        spec = emit.emit_spec(cfg, 0.0)
+        pts = torch.from_numpy((rng.random((3, LANES)) * 0.1).astype(np.float32)).to(dev)
+        emit.map_emit(spec, pts, cfg.warmup, emit=False)
+        ms = _time_ms(lambda: emit.map_emit(spec, pts, CHUNK), reps=20)
+        plain_ms = _time_ms(lambda: emit.map_emit_plain(spec, pts, CHUNK), reps=2, warm=1)
+        rows[preset] = {"ms": ms, "plain_ms": plain_ms}
+        print(f"[14] {preset} PACKED {LANES} lanes x {CHUNK} steps: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+    return {"err": err, "rows": rows}
+
+
+def phase_presets(sat, dev, out_dir: Path, card: str) -> dict:
+    """Each of the nine presets through the CLI entry point at 1920x1080,
+    10^8 iterations, 8-bit PNG, seed 1, with every launch count at 0 just
+    before it (the state checkpointed by --save-state, to read the image
+    back); for each new preset, kernel against plain-twin renders: a 10^6
+    Gas render, and for the RK4 presets 2x10^5 renders through --depth,
+    exact-kernel and a two-frame shared-orbit sequence."""
+    from strange_attractor_tpu_torch import cli
+    from strange_attractor_tpu_torch.ops import emit
+    from strange_attractor_tpu_torch.render import seed_generator
+
+    B = sat.BinStrategy
+    runs = {}
+    for preset in sat.presets.PRESET_NAMES:
+        out, npz = out_dir / preset, out_dir / f"{preset}.npz"
+        counters = _zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["-p", preset, "-i", str(PRESET_ITERS), "-w", str(W), "-h", str(H), "-8",
+                  "--seed", "1", "-q", "-o", str(out), "--save-state", str(npz)])
+        wall = time.perf_counter() - t0
+        launches = _require_launches(f"[15] {preset}", counters, ("map_emit", "bin_packed"))
+        cfg = sat.presets.by_name(preset, iterations=PRESET_ITERS, width=W, height=H, seed=1)
+        state = sat.load_state(str(npz), device=dev)
+        img = sat.colorize(cfg, state)[..., :3]
+        lit = float((img.to(torch.int32).amax(dim=-1) > 0).float().mean())
+        if not lit > 0.02:
+            raise AssertionError(f"[15] {preset}: image nearly blank: lit fraction {lit}")
+        size = out.with_suffix(".png").stat().st_size
+        print(f"[15] {preset} through the CLI, {W}x{H} 1e8 8-bit seed 1: lit {lit:.3f}, "
+              f"launches {launches}, {size} bytes of PNG, wall {wall:.4f} s (with the "
+              f"checkpoint) on {card}")
+        runs[preset] = {"launches": launches, "lit": lit, "wall": wall}
+        if preset not in NEW_PRESETS:  # phases 5 and 9 hold these to their twins
+            continue
+        cfg = sat.presets.by_name(preset, iterations=1_000_000, width=W, height=H, seed=1)
+        lanes, chunk, _ = sat.plan_schedule(cfg)
+        cfg = cfg.replace(lanes=lanes, chunk_steps=chunk, bin_strategy=B.KERNEL)
+        kern = sat.render(cfg, device=dev)
+        plain = sat.render(cfg.replace(bin_strategy=B.PACKED), device=dev)
+        for name in ("count", "packed"):
+            _check_equal(f"[15] {preset} 1e6 {name} plane", getattr(kern, name),
+                         getattr(plain, name))
+        if preset not in RK4_PRESETS:
+            continue
+        small = cfg.replace(iterations=200_000, lanes=None, chunk_steps=None,
+                            bin_strategy=B.AUTO)
+        for label, kw, plain_kw in (("depth", dict(render=sat.RenderKind.DEPTH),
+                                     dict(bin_strategy=B.DEPTH)),
+                                    ("exact-kernel", dict(bin_strategy=B.EXACT_KERNEL),
+                                     dict(bin_strategy=B.EXACT))):
+            c = small.replace(**kw)
+            seeds = emit.seed_points(sat.plan_schedule(c)[0], seed_generator(c)).to(dev)
+            k, q = sat.render_seeds(c, seeds), sat.render_seeds(c.replace(**plain_kw), seeds)
+            for name, g in k._asdict().items():
+                if g is not None:
+                    _check_equal(f"[15] {preset} 2e5 {label} {name}", g, getattr(q, name))
+        seeds = emit.seed_points(sat.plan_schedule(small)[0], seed_generator(small)).to(dev)
+        angles = (0.0, math.radians(140.0))
+        for f, (k, q) in enumerate(zip(sat.render_seeds_shared(small, seeds, angles),
+                                       sat.render_seeds_shared(small, seeds, angles, plain=True))):
+            for name in ("count", "packed"):
+                _check_equal(f"[15] {preset} shared frame {f} {name}", getattr(k, name),
+                             getattr(q, name))
+    print(f"[15] 1e6 renders of {', '.join(NEW_PRESETS)}: kernels and plain twins give "
+          f"identical planes; 2e5 --depth, exact-kernel and shared-orbit renders of the RK4 "
+          f"presets too")
+    return runs
+
+
+def phase_rk4_renders(sat, dev, card: str) -> dict:
+    """10^9 iterations of each RK4 preset at 1920x1080, seed 1: launches
+    counted, three warm synchronized renders for the rate."""
+    return {preset: _render_rates(
+        sat, dev, sat.presets.by_name(preset, iterations=10**9, width=W, height=H, seed=1,
+                                      silent=True),
+        f"[16] {preset}", card, ("map_emit", "bin_packed")) for preset in RK4_PRESETS}
+
+
 _SOURCE = "strange_attractor_tpu_torch/csrc/"
 _TPU = "strange_attractor_tpu/ops/kernel_binning.py:"
 # kernel row -> (source, replaces, its counter, its 10^9 render in phase 13)
@@ -1167,10 +1405,19 @@ def _emit_bound(kind: str, lanes: int, steps: int) -> dict:
     return _bound(EMIT_BYTES[kind] * points + state, EMIT_OPS[kind] * points)
 
 
-def _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders) -> list:
+def _map_bound(preset: str, lanes: int, steps: int) -> dict:
+    """Kernel A's PACKED bound for one chunk of ``preset``'s map: the
+    Sprott row's bytes, and its operations with the map's own."""
+    points = lanes * steps
+    ops = EMIT_OPS["packed"] - MAP_OPS["sprott"] + MAP_OPS[preset]
+    return _bound(EMIT_BYTES["packed"] * points + 2 * 12 * lanes, ops * points)
+
+
+def _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders, rk4, preset_runs,
+                 rk4_renders) -> list:
     """The final ``kernels`` line: one row per kernel, with its time, its
     plain twin's, its bound from this run's shapes, its launches on its
-    path run and in a 10^9-iteration render (phase 13)."""
+    path run and in a 10^9-iteration render (phases 13 and 16)."""
     no_library = {"library_ms": None, "library_note": LIBRARY_NOTE}
     flag = renders["flagship"]["launches"]
     rows = [{
@@ -1184,6 +1431,7 @@ def _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders) -> list:
                          **_emit_bound(kind, LANES, CHUNK)} for kind in modes["ms"]},
         "shared_cell": {"ms": shared["ms"]["shared"], "plain_ms": shared["ms"]["shared_plain"],
                         **_emit_bound("shared", SEQ_LANES, SEQ_CHUNK)},
+        "retimed_ms": rk4["rows"]["poisson-saturne"]["ms"],
     }, {
         "name": "bin_packed", "route": "cuda", "source": _SOURCE + "bin_packed.cu",
         "replaces": _TPU + "475", "launches": s["launches"]["bin_packed"],
@@ -1204,6 +1452,17 @@ def _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders) -> list:
                  **_emit_bound("project", SEQ_LANES, SEQ_CHUNK),
                  "launches_per_1e9": renders["rotation"]["launches"]["project_emit"],
                  **no_library})
+    for preset in RK4_PRESETS:
+        rows.append({"name": f"map_emit_{preset}", "route": "cuda",
+                     "source": _SOURCE + "map_emit_rk4.cu",
+                     "replaces": "strange_attractor_tpu/render.py:410",
+                     "map": "strange_attractor_tpu/models/attractors.py:113",
+                     "launches": preset_runs[preset]["launches"]["map_emit"],
+                     "max_abs_err": rk4["err"], "ms": rk4["rows"][preset]["ms"],
+                     "plain_ms": rk4["rows"][preset]["plain_ms"],
+                     **_map_bound(preset, LANES, CHUNK),
+                     "launches_per_1e9": rk4_renders[preset]["launches"]["map_emit"],
+                     **no_library})
     return rows
 
 
@@ -1227,6 +1486,7 @@ def main() -> int:
     b = phase_kernel_b(sat, dev)
     with tempfile.TemporaryDirectory() as tmp:
         s = phase_slice(sat, dev, Path(tmp), card)
+        encoder = phase_encoder(s.pop("image"))
         phase_twins(sat, dev, Path(tmp))
         modes = phase_emit_modes(sat, dev)
         bins = phase_bins(sat, dev)
@@ -1235,10 +1495,16 @@ def main() -> int:
         shared = phase_shared_emit(sat, dev)
         phase_sequence_twins(sat, dev)
         seq = phase_sequence_cell(sat, dev, Path(tmp), card)
+        rk4 = phase_rk4_kernel_a(sat, dev)
+        preset_runs = phase_presets(sat, dev, Path(tmp), card)
     renders = phase_renders(sat, dev, card)
+    rk4_renders = phase_rk4_renders(sat, dev, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    kernels = _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders)
+    kernels = _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders, rk4, preset_runs,
+                           rk4_renders)
+    print(json.dumps({"encoder": encoder, "frame_split_s": s["split"],
+                      "rotation_encode": seq["encode"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

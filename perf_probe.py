@@ -9,8 +9,8 @@ PyTorch/CUDA port, for comparing two versions on one card.
 this checkout, for example an older commit's package unpacked with
 ``git archive <commit> strange_attractor_tpu_torch | tar -x -C DIR``; its
 kernels build under DIR's own ``build/``. ``--only`` runs the named groups
-(``map_emit``, ``bin_packed``, ``bin_depth``, ``bin_exact``, ``render``)
-and skips the others. Two runs may land on two cards, so
+(``map_emit``, ``bin_packed``, ``bin_depth``, ``bin_exact``, ``render``,
+``ptxas``) and skips the others. Two runs may land on two cards, so
 compare versions only inside one machine session, in turns: old, new, new,
 old. Every measurement is chip_smoke.py's own, made on the imported package:
 
@@ -37,7 +37,10 @@ old. Every measurement is chip_smoke.py's own, made on the imported package:
 - ``render``: a 10^9 render's launches and the synchronized rates of three
   warm 10^9 renders of the flagship and of solar-sail 1800x2000, through
   KERNEL, DEPTH_KERNEL (``--depth``), EXACT_KERNEL and EXACT16_KERNEL (ties
-  value) (``chip_smoke._render_rates``).
+  value) (``chip_smoke._render_rates``);
+- ``ptxas``: per CUDA source of the package, its kernels' count, the most
+  registers any of them uses, their spill bytes (``nvcc -Xptxas -v`` with
+  the package's own flags) and the compile's seconds.
 
 It prints, as the last line of its output, one JSON object of these and the
 card's name and power limit. It imports no JAX and needs one card.
@@ -54,7 +57,7 @@ import numpy as np
 import torch
 
 
-GROUPS = ("map_emit", "bin_packed", "bin_depth", "bin_exact", "render")
+GROUPS = ("map_emit", "bin_packed", "bin_depth", "bin_exact", "render", "ptxas")
 
 
 def _exact_bins(cs, sat, kb, binning, cfg, dev) -> dict:
@@ -75,6 +78,31 @@ def _exact_bins(cs, sat, kb, binning, cfg, dev) -> dict:
             lambda *p: kb.bin_chunk_kernel_exact16(*p, ties="earliest", scratch=scratch),
             lambda *p: binning.bin_chunk_exact16(*p, ties="earliest")),
     }
+
+
+def _ptxas(cuda_lib) -> dict:
+    """source -> its kernels, most registers, spill bytes and compile
+    seconds, by ``nvcc -Xptxas -v`` with the package's flags."""
+    import re
+    import subprocess
+    import tempfile
+    import time
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in cuda_lib.SOURCES:
+            t0 = time.perf_counter()
+            built = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                                    "-o", str(Path(tmp) / "k.o"), str(cuda_lib.CSRC / src)],
+                                   capture_output=True, text=True, check=True)
+            text = built.stdout + built.stderr
+            regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+            out[src] = {"kernels": len(regs), "max_registers": max(regs, default=0),
+                        "spill_bytes": sum(int(a) + int(b) for a, b in spills),
+                        "seconds": time.perf_counter() - t0}
+            print(f"ptxas {src}: {out[src]}")
+    return out
 
 
 def main() -> int:
@@ -158,6 +186,10 @@ def main() -> int:
             out["render"][path + suffix] = cs._render_rates(
                 sat, dev, make(sat, 10**9, **kw), f"render {path}{suffix}", card,
                 ("map_emit", counter))
+    if "ptxas" in only:
+        from strange_attractor_tpu_torch.ops import cuda_lib
+
+        out["ptxas"] = _ptxas(cuda_lib)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps(out))

@@ -32,7 +32,7 @@ from .ops.projection import EulerAxisRotation
 from .render import (colorize, plan_schedule, render, render_frame, render_seeds,
                      render_seeds_shared, render_sequence, render_sequence_batched,
                      render_sequence_shared)
-from .runtime import RenderState, load_state, merge, save_state
+from .runtime import RenderState, load_state, merge, merge_all, save_state
 
 __version__ = "0.1.0"
 
@@ -51,6 +51,7 @@ __all__ = [
     "colorize",
     "load_state",
     "merge",
+    "merge_all",
     "plan_schedule",
     "poisson_saturne_transform",
     "presets",

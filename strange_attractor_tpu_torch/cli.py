@@ -11,7 +11,9 @@ sequences, with the JAX package's flag names (strange_attractor_tpu/cli.py:
 
 Path: render -> colorize -> convert on the device -> one host copy (per
 frame, or per batch of a batched sequence) -> write, sequence frames on up
-to four encoder threads. ``completion`` and ``doctor`` exit with a "not
+to four encoder threads. A single frame can resume from and checkpoint its
+accumulation (``--load-state``, ``--save-state``) and write previews while
+it renders (``--preview-every``). ``completion`` and ``doctor`` exit with a "not
 yet ported" error; the JAX package (``python -m strange_attractor_tpu``)
 has them.
 """
@@ -19,13 +21,16 @@ has them.
 from __future__ import annotations
 
 import argparse
+import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from pathlib import Path
 
 import numpy as np
 
-from .config import BinStrategy, BrightnessConstants, Colors, RenderKind
+from .config import BinStrategy, BrightnessConstants, Colors, Palette, RenderKind
 from .models import presets
+from .models.attractors import PolynomialSprott2Degree
+from .ops.projection import EulerAxisRotation
 
 _NOT_PORTED = ("completion", "doctor")
 # encoder threads of a sequence (the reference spawns one per frame,
@@ -53,6 +58,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Image zoom (default: the preset's own scale)")
     p.add_argument("-p", "--preset", choices=list(presets.PRESET_NAMES),
                    default="poisson-saturne", help="Which built-in attractor to render")
+    # a custom polynomial Sprott map: each row takes the 10 coefficients of
+    # [1, x, x^2, xy, xz, y, y^2, yz, z, z^2]
+    p.add_argument("--coeffs-x", dest="coeffs_x", type=float, nargs=10, default=None,
+                   metavar="C", help="Custom attractor: 10 x-row coefficients")
+    p.add_argument("--coeffs-y", dest="coeffs_y", type=float, nargs=10, default=None,
+                   metavar="C", help="Custom attractor: 10 y-row coefficients")
+    p.add_argument("--coeffs-z", dest="coeffs_z", type=float, nargs=10, default=None,
+                   metavar="C", help="Custom attractor: 10 z-row coefficients")
+    p.add_argument("--camera", type=float, nargs=3, default=None, metavar="V",
+                   help="Custom attractor: center_camera x y z (default: preset's)")
+    p.add_argument("--rotation-axis", dest="rotation_axis", type=float, nargs=4,
+                   default=None, metavar="V",
+                   help="Custom attractor: rotation axis x y z + angle (radians)")
     p.add_argument("--pam", "--pnm", "--pbm", dest="pam", action="store_true",
                    help="Use PAM format. 16-bit images are not supported.")
     p.add_argument("--bmp", "--bitmap", dest="bmp", action="store_true",
@@ -66,6 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=-0.15,
                    help="Offset the brightness. You generally want to decrease this if "
                         "you have > 1e8 iterations.")
+    p.add_argument("--palette", default=None, metavar="STOPS",
+                   help="Custom palette: semicolon-separated r,g,b stops in [0,1], "
+                        "e.g. '1,1,.5;.5,1,.5;1,.5,.5' (default: the reference's "
+                        "6-stop table; interpolation clamps + sqrt per channel)")
     p.add_argument("--lanes", type=int, default=None,
                    help="Parallel trajectory lanes (default: auto from iterations)")
     p.add_argument("--chunk-steps", type=int, default=None,
@@ -83,6 +105,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="exact16-kernel bucket-tie rule: 'value' (smallest f16 value of "
                         "the top z bucket) or 'earliest' (first-emitted point)")
     p.add_argument("--seed", type=int, default=None, help="Deterministic RNG seed")
+    p.add_argument("--save-state", default=None, metavar="PATH",
+                   help="Checkpoint the accumulator state to PATH (.npz) after rendering")
+    p.add_argument("--load-state", default=None, metavar="PATH",
+                   help="Resume accumulation from a checkpointed state (.npz)")
+    p.add_argument("--preview-every", dest="preview_every", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="During long renders, write a '<name>-preview' image at this "
+                        "interval showing the ever-improving accumulation")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda; 'cpu' runs the "
                         "plain PyTorch twins of the kernels)")
@@ -150,6 +180,17 @@ def _validate(args, parser):
         parser.error("--pam/--bmp require --8-bit (16-bit images are not supported)")
     if args.pam and args.bmp:
         parser.error("--pam conflicts with --bmp")
+    args.palette_stops = None
+    if args.palette:
+        try:
+            stops = [[float(c) for c in stop.split(",")]
+                     for stop in args.palette.split(";") if stop.strip()]
+            args.palette_stops = Palette(stops)  # checks the shape and that it is not empty
+        except (ValueError, TypeError) as e:
+            parser.error(f"--palette: {e}")
+        if any(not 0.0 <= c <= 1.0 for stop in stops for c in stop):
+            # out-of-range stops reach sqrt(negative) in the palette lerp
+            parser.error("--palette: components must be in [0, 1]")
 
 
 def config_from_args(args):
@@ -161,7 +202,7 @@ def config_from_args(args):
         height=args.height,
         transparent=args.transparent,
         silent=args.silent,
-        colors=Colors(palette=config.colors.palette,
+        colors=Colors(palette=args.palette_stops or config.colors.palette,
                       brightness=BrightnessConstants(offset=args.brightness_offset)),
         angle=float(np.radians(args.angle)),
         lanes=args.lanes,
@@ -173,6 +214,21 @@ def config_from_args(args):
     )
     if args.scale is not None:
         config = config.replace(view=config.view.replace(scale=args.scale))
+    # a custom map: rows not given come from the preset's Sprott map, or are
+    # zero over an RK4 preset
+    rows = (args.coeffs_x, args.coeffs_y, args.coeffs_z)
+    if any(r is not None for r in rows):
+        base = config.attractor
+        if not isinstance(base, PolynomialSprott2Degree):
+            base = PolynomialSprott2Degree(x=(0,) * 10, y=(0,) * 10, z=(0,) * 10)
+        config = config.replace(attractor=PolynomialSprott2Degree(
+            *(tuple(r) if r else b for r, b in zip(rows, (base.x, base.y, base.z)))))
+    if args.camera is not None:
+        config = config.replace(view=config.view.replace(center_camera=tuple(args.camera)))
+    if args.rotation_axis is not None:
+        ax = args.rotation_axis
+        config = config.replace(view=config.view.replace(
+            rotation=EulerAxisRotation(axis=(ax[0], ax[1], ax[2]), rotation=ax[3])))
     return config
 
 
@@ -234,9 +290,48 @@ def _sequence(args, config, fmt: str) -> None:
     _write_frames(zip(images, (path for _, path in frames)), write)
 
 
+def _deliverable(args, config, state) -> np.ndarray:
+    """colorize -> (transparent, 8-bit) conversion on the device -> one
+    host copy."""
+    from .render import colorize
+    from .utils.export import convert_format_device, to_host
+
+    return to_host(convert_format_device(colorize(config, state), args.transparent,
+                                         args.eight_bit))
+
+
+def _render_stateful(args, config, fmt: str):
+    """One frame's render, resumed from ``--load-state`` and calling back
+    for ``--preview-every`` (the JAX CLI's ``_render_stateful``,
+    strange_attractor_tpu/cli.py:554-600): returns (host image, state)."""
+    from .render import render
+    from .runtime import load_state
+    from .utils.export import write_image
+
+    state = load_state(args.load_state, device=args.device) if args.load_state else None
+    on_progress = None
+    if args.preview_every > 0:
+        base, last = _output_base(args), [time.perf_counter()]
+
+        def on_progress(done, total, partial):
+            now = time.perf_counter()
+            if now - last[0] < args.preview_every:
+                return
+            last[0] = now
+            # no dot in the stem: with_suffix would take ".preview" for an
+            # extension and overwrite the final image
+            write_image(base.parent / (base.name + "-preview"),
+                        _deliverable(args, config, partial), fmt=fmt,
+                        transparent=args.transparent, eight_bit=args.eight_bit, silent=True,
+                        announce=False)
+
+    state = render(config, state, on_progress=on_progress, device=args.device)
+    return _deliverable(args, config, state), state
+
+
 def main(argv=None) -> int:
-    from .render import colorize, render
-    from .utils.export import convert_format_device, to_host, write_image
+    from .runtime import save_state
+    from .utils.export import write_image
 
     parser = build_parser()
     # an unported subcommand's own flags must not hide the "not yet ported" error
@@ -249,9 +344,12 @@ def main(argv=None) -> int:
     if args.subcommand == "sequence":
         _sequence(args, config, fmt)
         return 0
-    state = render(config, device=args.device)
-    image = convert_format_device(colorize(config, state), args.transparent, args.eight_bit)
-    write_image(_output_base(args), to_host(image), fmt=fmt, transparent=args.transparent,
+    image, state = _render_stateful(args, config, fmt)
+    if args.save_state:
+        save_state(args.save_state, state)
+        if not config.silent:
+            print(f"Saved render state to '{args.save_state}'.")
+    write_image(_output_base(args), image, fmt=fmt, transparent=args.transparent,
                 eight_bit=args.eight_bit, silent=config.silent)
     return 0
 

@@ -8,8 +8,10 @@ cross as host numpy planes in the shared ``.npz`` layout
 
 from __future__ import annotations
 
+import dataclasses
+
 from .config import BinStrategy, BrightnessConstants, Colors, Config, Palette, RenderKind, View
-from .models.attractors import PolynomialSprott2Degree
+from .models.attractors import Halvorsen, Lorenz, PolynomialSprott2Degree, Rossler, Thomas
 from .models.transforms import AdjustedVelocity, poisson_saturne_transform
 from .ops.projection import EulerAxisRotation
 from .runtime import state_from_numpy, state_to_numpy
@@ -26,17 +28,29 @@ def _transform(ref):
     raise NotImplementedError(f"color transform {name} is not ported yet")
 
 
+# the JAX package's attractor classes by name -> the port's, built from the
+# same dataclass fields
+_ATTRACTORS = {cls.__name__: cls for cls in (PolynomialSprott2Degree, Lorenz, Rossler,
+                                             Halvorsen, Thomas)}
+
+
+def _attractor(ref):
+    cls = _ATTRACTORS.get(type(ref).__name__)
+    if cls is None:
+        raise NotImplementedError(f"attractor {type(ref).__name__} is not ported")
+    return cls(**{f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)})
+
+
 def config_from_reference(ref) -> Config:
     """The port's Config for a JAX-package Config ``ref``: coefficients,
     view, color transform, palette stops, brightness, sizes, schedule knobs,
     bin strategy and ``exact16_ties``. ``kernel_section`` and
     ``kernel_window`` are not carried: they size the TPU's sort sections
-    and apply windows, which the Hopper kernels do not have. Raises
-    NotImplementedError for what the port does not run yet (non-Sprott
-    attractors, other transforms, float64)."""
-    att = ref.attractor
-    if type(att).__name__ != "PolynomialSprott2Degree":
-        raise NotImplementedError(f"attractor {type(att).__name__} is not ported yet")
+    and apply windows, which the Hopper kernels do not have. The attractor
+    (the Sprott map or an RK4 class) is carried by class name and fields.
+    Raises NotImplementedError for what the port does not run yet (other
+    attractors and transforms, float64)."""
+    attractor = _attractor(ref.attractor)
     if getattr(ref, "dtype", "float32") != "float32":
         raise NotImplementedError(f"dtype {ref.dtype!r}: the port computes in float32")
     rot = ref.view.rotation
@@ -48,7 +62,7 @@ def config_from_reference(ref) -> Config:
     )
     bk = ref.colors.brightness
     return Config(
-        attractor=PolynomialSprott2Degree(x=att.x, y=att.y, z=att.z),
+        attractor=attractor,
         view=view,
         color_transform=_transform(ref.color_transform),
         iterations=int(ref.iterations),

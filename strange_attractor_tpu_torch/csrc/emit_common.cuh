@@ -26,6 +26,9 @@ static inline int sm_count() {
 // the launch constants of both kernels (ops/cuda_lib.py EmitParams)
 struct EmitParams {
   float coef[30];  // x, y, z coefficient rows of the Sprott map
+  int map;         // map_emit.cuh MAP_*: 0 Sprott, else an RK4 map
+  float mc[3];     // the RK4 map's derivative constants (float32)
+  float h, hh, h6;  // the RK4 step h, 0.5 h and h / 6, each float32
   float rot[9];    // row-major view rotation
   float cos_v, sin_v;
   float ccx, ccy, ccz;  // center_camera

@@ -1,18 +1,30 @@
-"""Built-in presets with the reference's exact constants: poisson-saturne
-(src/lib.rs:310-353) and solar-sail (src/lib.rs:355-387).
-
-The JAX package's other presets (the RK4 family and the discovered Sprott
-maps) are not ported yet (ROADMAP).
+"""Built-in presets, with the JAX package's nine names and constants
+(strange_attractor_tpu/models/presets.py:17-286): the reference's
+poisson-saturne (src/lib.rs:310-353) and solar-sail (src/lib.rs:355-387),
+the RK4 family (lorenz, rossler, halvorsen, thomas) and three discovered
+Sprott maps (aurora-veil, orchid-ribbon, delta-kite).
 """
 
 from __future__ import annotations
 
+import math
+
 from ..config import Config, View
 from ..ops.projection import EulerAxisRotation
-from .attractors import PolynomialSprott2Degree
+from .attractors import Halvorsen, Lorenz, PolynomialSprott2Degree, Rossler, Thomas
 from .transforms import AdjustedVelocity, poisson_saturne_transform
 
-PRESET_NAMES = ("poisson-saturne", "solar-sail")
+PRESET_NAMES = (
+    "poisson-saturne",
+    "solar-sail",
+    "lorenz",
+    "rossler",
+    "halvorsen",
+    "thomas",
+    "aurora-veil",
+    "orchid-ribbon",
+    "delta-kite",
+)
 
 
 def _config(attractor, view, color_transform, overrides) -> Config:
@@ -64,7 +76,117 @@ def solar_sail(**overrides) -> Config:
     return _config(attractor, view, AdjustedVelocity(factor=-0.2, offset=0.8), overrides)
 
 
-_BY_NAME = {"poisson-saturne": poisson_saturne, "solar-sail": solar_sail}
+def lorenz(**overrides) -> Config:
+    """The Lorenz butterfly (continuous-time, not in the reference): the
+    view rotates about x by -90 degrees so that z maps to screen-up."""
+    view = View(
+        center_camera=(0.0, 0.0, -24.0),
+        rotation=EulerAxisRotation(axis=(1.0, 0.0, 0.0), rotation=-math.pi / 2),
+        scale=0.02,
+    )
+    return _config(Lorenz(), view, AdjustedVelocity(offset=-0.05, factor=3.0), overrides)
+
+
+def rossler(**overrides) -> Config:
+    """The Roessler funnel band (continuous-time, not in the reference),
+    viewed top-down."""
+    view = View(
+        center_camera=(-1.0, -12.0, 2.5),  # (pairs: x->screen-x, y->depth, z->screen-y)
+        rotation=EulerAxisRotation(axis=(1.0, 0.0, 0.0), rotation=0.0),
+        scale=1.0 / 42.0,
+    )
+    return _config(Rossler(), view, AdjustedVelocity(offset=-0.05, factor=1.6), overrides)
+
+
+def halvorsen(**overrides) -> Config:
+    """Halvorsen's cyclic attractor (continuous-time, not in the
+    reference), viewed slightly off its symmetry axis."""
+    view = View(
+        center_camera=(6.0, 2.5, 2.5),
+        rotation=EulerAxisRotation(axis=(1.0, 1.0, 0.0), rotation=0.6, normalize=True),
+        scale=1.0 / 44.0,
+    )
+    return _config(Halvorsen(), view, AdjustedVelocity(offset=-0.1, factor=0.25), overrides)
+
+
+def thomas(**overrides) -> Config:
+    """Thomas' cyclically symmetric knot (continuous-time, transcendental;
+    not in the reference), at b=0.18, which the JAX package chose as
+    robustly chaotic (strange_attractor_tpu/models/presets.py:179-200)."""
+    view = View(
+        center_camera=(0.0, 0.0, 0.0),
+        rotation=EulerAxisRotation(axis=(1.0, 1.0, 0.0), rotation=0.6, normalize=True),
+        scale=0.07159,
+    )
+    return _config(Thomas(b=0.18), view, AdjustedVelocity(offset=-0.005, factor=5.5), overrides)
+
+
+# The discovered second-degree Sprott maps (found by the JAX package's
+# tools/find_attractors.py). Their unit axis is written out
+# (= normalize((0.35, 0.8, 0.49))), so that --rotation-axis, which never
+# normalizes, can express the view.
+_DISCOVERY_TILT = EulerAxisRotation(
+    axis=(0.34954588533198816, 0.7989620236159731, 0.48936423946478347),
+    rotation=1.1,
+)
+
+
+def aurora_veil(**overrides) -> Config:
+    """Dense folded curtain (search hit seed=1/index=515)."""
+    attractor = PolynomialSprott2Degree(
+        x=(0.4, -0.8, 0.6, 0.7, 0.8, 0.6, -0.8, 1.0, -0.2, -1.2),
+        y=(0.9, 0.3, 0.8, 0.0, 0.2, -0.5, -0.1, 0.6, -0.5, 0.1),
+        z=(0.8, -0.7, -1.0, 0.2, -0.3, 0.5, -1.2, 1.1, -0.5, -0.3),
+    )
+    view = View(
+        center_camera=(-0.14371, -0.23678, -0.72624),
+        rotation=_DISCOVERY_TILT,
+        scale=0.757,
+    )
+    return _config(attractor, view, AdjustedVelocity(offset=-0.05, factor=1.5), overrides)
+
+
+def orchid_ribbon(**overrides) -> Config:
+    """Looping ribbon bundle (search hit seed=1/index=1278)."""
+    attractor = PolynomialSprott2Degree(
+        x=(-0.2, -0.5, -0.9, -0.5, 0.3, 0.4, -1.2, 1.1, 0.1, 0.4),
+        y=(0.4, 1.1, 1.2, 0.7, 1.0, -0.6, -0.1, 0.2, 0.4, -0.4),
+        z=(0.4, 0.9, -0.3, -0.6, 0.1, -0.6, -0.4, -1.1, 0.7, 0.3),
+    )
+    view = View(
+        center_camera=(0.32924, -0.04543, 0.15375),
+        rotation=_DISCOVERY_TILT,
+        scale=0.5046,
+    )
+    return _config(attractor, view, AdjustedVelocity(offset=-0.05, factor=1.5), overrides)
+
+
+def delta_kite(**overrides) -> Config:
+    """Swept triangular sheet (search hit seed=1/index=2999)."""
+    attractor = PolynomialSprott2Degree(
+        x=(0.0, -0.7, -1.0, -1.2, 0.5, -1.1, -0.1, 0.2, 0.0, 1.1),
+        y=(-0.4, 0.7, 1.1, -1.1, 0.4, 0.4, 0.4, -0.1, -0.1, -0.2),
+        z=(-0.1, -0.9, -0.9, -0.2, -1.0, -0.5, -0.9, 0.5, 0.1, 0.7),
+    )
+    view = View(
+        center_camera=(0.11734, 0.21605, -0.06813),
+        rotation=_DISCOVERY_TILT,
+        scale=0.7519,
+    )
+    return _config(attractor, view, AdjustedVelocity(offset=-0.05, factor=1.5), overrides)
+
+
+_BY_NAME = {
+    "poisson-saturne": poisson_saturne,
+    "solar-sail": solar_sail,
+    "lorenz": lorenz,
+    "rossler": rossler,
+    "halvorsen": halvorsen,
+    "thomas": thomas,
+    "aurora-veil": aurora_veil,
+    "orchid-ribbon": orchid_ribbon,
+    "delta-kite": delta_kite,
+}
 
 
 def by_name(name: str, **overrides) -> Config:

@@ -29,9 +29,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("map_emit.cu", "project_emit.cu", "bin_packed.cu", "bin_depth.cu", "bin_exact.cu",
-           "bin_exact16.cu")
-HEADERS = ("emit_common.cuh", "bin_tile.cuh")
+SOURCES = ("map_emit.cu", "map_emit_rk4.cu", "project_emit.cu", "bin_packed.cu", "bin_depth.cu",
+           "bin_exact.cu", "bin_exact16.cu")
+HEADERS = ("emit_common.cuh", "map_emit.cuh", "bin_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -42,6 +42,8 @@ class EmitParams(ctypes.Structure):
 
     _fields_ = [
         ("coef", ctypes.c_float * 30),
+        ("map", ctypes.c_int), ("mc", ctypes.c_float * 3),
+        ("h", ctypes.c_float), ("hh", ctypes.c_float), ("h6", ctypes.c_float),
         ("rot", ctypes.c_float * 9),
         ("cos_v", ctypes.c_float), ("sin_v", ctypes.c_float),
         ("ccx", ctypes.c_float), ("ccy", ctypes.c_float), ("ccz", ctypes.c_float),

@@ -1,9 +1,10 @@
 """Fused map + emit: the lane recurrence that feeds the binning.
 
-Per map step and lane: Sprott step, view rotation, camera projection, color
-transform, bounds check and (z, value) packing -- the body of the JAX
-package's ``_step_fn`` + ``_finish_emit`` (strange_attractor_tpu/render.py:
-130-196), which XLA fused into one ``lax.scan`` program on the TPU.
+Per map step and lane: the map step (the Sprott map or an RK4 step), view
+rotation, camera projection, color transform, bounds check and (z, value)
+packing -- the body of the JAX package's ``_step_fn`` + ``_finish_emit``
+(strange_attractor_tpu/render.py:130-196), which XLA fused into one
+``lax.scan`` program on the TPU.
 
 Two implementations with one contract:
 
@@ -46,7 +47,7 @@ import math
 import torch
 
 from ..config import BinStrategy, Config
-from ..models.attractors import PolynomialSprott2Degree
+from ..models.attractors import Halvorsen, Lorenz, PolynomialSprott2Degree, Rossler, Thomas
 from ..models.transforms import AdjustedVelocity, PoissonSaturneTransform
 from . import cuda_lib
 from .binning import pack_zv
@@ -58,7 +59,7 @@ from .projection import (CameraParams, angle_half, camera_params, f32, project, 
 class EmitSpec:
     """Everything one map+emit launch reads besides the lane state."""
 
-    attractor: PolynomialSprott2Degree
+    attractor: object  # a models.attractors map
     transform: object
     view: object
     cam: CameraParams  # carries the camera angle's cos/sin
@@ -202,15 +203,25 @@ def project_emit_plain(spec: EmitSpec, stream, *, kind: BinStrategy = BinStrateg
     return finish_emit(spec.npix, cam.width, cam.height, fi, fj, z2, val, kind)
 
 
+# the kernel's maps (csrc/map_emit.cuh MAP_*)
+_MAPS = {PolynomialSprott2Degree: 0, Lorenz: 1, Rossler: 2, Halvorsen: 3, Thomas: 4}
+
+
 def _kernel_params(spec: EmitSpec) -> cuda_lib.EmitParams:
     """Host-side float32 constants, each rounded once from float64 exactly
     as the plain twin rounds them."""
-    if type(spec.attractor) is not PolynomialSprott2Degree:
-        raise NotImplementedError("the map+emit kernel runs PolynomialSprott2Degree only, "
-                                  f"got {type(spec.attractor).__name__}")
+    att = spec.attractor
+    if type(att) not in _MAPS:
+        raise NotImplementedError(f"the map+emit kernel has no map {type(att).__name__}")
     cam = spec.cam
     p = cuda_lib.EmitParams()
-    p.coef[:] = [float(c) for c in spec.attractor.coefficients_f32().reshape(-1)]
+    p.map = _MAPS[type(att)]
+    if p.map == 0:
+        p.coef[:] = [float(c) for c in att.coefficients_f32().reshape(-1)]
+    else:
+        consts = att.constants_f32()
+        p.mc[:len(consts)] = consts
+        p.h, p.hh, p.h6 = att.rk4_constants()
     p.rot[:] = [f32(v) for row in cam.rotation_matrix for v in row]
     p.cos_v, p.sin_v = f32(cam.cos_angle), f32(cam.sin_angle)
     p.ccx, p.ccy, p.ccz = (f32(v) for v in cam.center_camera)

@@ -223,7 +223,7 @@ def _planes_to_state(planes: tuple, kind: BinStrategy, shape: tuple) -> RenderSt
 
 def render(config: Config, state: Optional[RenderState] = None,
            generator: Optional[torch.Generator] = None, *, angle: Optional[float] = None,
-           device="cuda") -> RenderState:
+           on_progress=None, device="cuda") -> RenderState:
     """Accumulate ``config.iterations`` map iterations into ``state``.
 
     Like the reference's ``render`` (src/lib.rs:747), call it again on the
@@ -234,7 +234,9 @@ def render(config: Config, state: Optional[RenderState] = None,
     render runs: a given state must lie there (a ``ValueError`` names both
     devices otherwise), so a state loaded onto the CPU renders on the CPU
     only when ``device="cpu"`` says so. A CUDA device must be available:
-    there is no CPU fallback.
+    there is no CPU fallback. ``on_progress(done_chunks, total_chunks,
+    partial_state)`` is called after each group of chunks, with a copy of
+    the state (:func:`render_seeds`).
     """
     _check_supported(config)
     progressive = state is not None
@@ -254,7 +256,8 @@ def render(config: Config, state: Optional[RenderState] = None,
         generator = seed_generator(config, nonce)
     lanes, _, _ = plan_schedule(config)
     seeds = emit.seed_points(lanes, generator)
-    return render_seeds(config, seeds.to(state.device), state, angle=angle)
+    return render_seeds(config, seeds.to(state.device), state, angle=angle,
+                        on_progress=on_progress)
 
 
 def _check_seeds(seeds: torch.Tensor, lanes: int) -> torch.device:
@@ -265,12 +268,17 @@ def _check_seeds(seeds: torch.Tensor, lanes: int) -> torch.device:
 
 
 def render_seeds(config: Config, seeds: torch.Tensor, state: Optional[RenderState] = None,
-                 *, angle: Optional[float] = None, plain: bool = False) -> RenderState:
+                 *, angle: Optional[float] = None, plain: bool = False,
+                 on_progress=None) -> RenderState:
     """Render from explicit pre-warm-up seed points ``seeds`` (lanes, 3)
     float32, one lane each, on their device: warm-up, then the planned
     chunks. The counterpart of ``oracle.oracle_render``'s explicit seeds.
     ``plain`` runs the plain twins of the strategy's kernels (the route the
-    scatter strategies always take) on any device."""
+    scatter strategies always take) on any device. ``on_progress(done,
+    total, partial_state)`` is called with a copy of the planes after each
+    group of chunks that ends with a progress line, and after the last
+    chunk: the JAX package's points, after each dispatch group
+    (render.py:533, :547-551, :618-627)."""
     _check_supported(config)
     lanes, chunk_steps, nchunks = plan_schedule(config)
     device = _check_seeds(seeds, lanes)
@@ -296,8 +304,12 @@ def render_seeds(config: Config, seeds: torch.Tensor, state: Optional[RenderStat
     group = min(nchunks, PROGRESS_EVERY)
     for done in range(1, nchunks + 1):
         planes = fns.bin(*planes, *fns.map_emit(spec, points, chunk_steps, kind=kind))
-        if not config.silent and done % group == 0 and done <= nchunks - nchunks % group:
+        full = done % group == 0 and done <= nchunks - nchunks % group
+        if not config.silent and full:
             print(f"Iteration complete, {nchunks - done} left to go.")
+        if on_progress is not None and (full or done == nchunks):
+            on_progress(done, nchunks,
+                        _planes_to_state(tuple(p.clone() for p in planes), kind, shape))
     if not config.silent:
         if device.type == "cuda":
             torch.cuda.synchronize(device)

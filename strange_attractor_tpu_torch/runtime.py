@@ -123,6 +123,18 @@ def merge(a: RenderState, b: RenderState) -> RenderState:
                        zbuf=torch.where(take_b, b.zbuf, a.zbuf))
 
 
+def merge_all(states) -> RenderState:
+    """Fold :func:`merge` over a sequence of states (reference
+    src/lib.rs:1068-1076; the JAX package's ``merge_all``)."""
+    states = list(states)
+    if not states:
+        raise ValueError("no states to merge")
+    acc = states[0]
+    for s in states[1:]:
+        acc = merge(acc, s)
+    return acc
+
+
 _U32_PLANES = ("count", "packed")
 
 

@@ -2,9 +2,11 @@
 (transparent, 8-bit) conversion on the device, then PNG (8/16-bit), animated
 PNG, BMP (8-bit) and PAM (8/16-bit) writers on the host.
 
-Mirrors the reference CLI's export matrix (src/bin/main.rs:27-104). The
-writers are numpy + stdlib (zlib, struct) only. 16-bit PNG samples are
-big-endian per the PNG spec.
+Mirrors the reference CLI's export matrix (src/bin/main.rs:27-104). PNG
+scanlines are filtered and deflated by the native host library of
+:mod:`utils.native` (``csrc/fastdeflate.cpp``: a multi-threaded adaptive
+filter and a parallel deflate), and by numpy and the stdlib's zlib where it
+cannot be built. 16-bit PNG samples are big-endian per the PNG spec.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .native import png_filter_adaptive, zlib_compress_parallel
 
 
 def convert_format(image_u16: np.ndarray, transparent: bool, eight_bit: bool) -> np.ndarray:
@@ -67,10 +71,22 @@ def _filter_scanlines(raw: np.ndarray, h: int) -> bytes:
     """Adaptive per-row PNG filtering (``FilterType::Adaptive``, like the
     reference encoder, src/bin/main.rs:84-88): each scanline keeps the
     filter of the five (None/Sub/Up/Average/Paeth) with the smallest sum of
-    absolute signed residuals."""
+    absolute signed residuals. Runs the native filter, else
+    :func:`_filter_scanlines_numpy`."""
     raw = np.ascontiguousarray(raw)
     rows = raw.reshape(h, -1).view(np.uint8).reshape(h, -1)
     bpp = raw.shape[-1] * raw.itemsize
+    if h > 0:
+        out = png_filter_adaptive(rows, bpp)
+        if out is not None:
+            return out
+    return _filter_scanlines_numpy(rows, bpp)
+
+
+def _filter_scanlines_numpy(rows: np.ndarray, bpp: int) -> bytes:
+    """The numpy adaptive filter of (h, stride) uint8 scanlines: the
+    fallback, and the reference the native filter is held to byte for
+    byte."""
     h, stride = rows.shape
     left = np.zeros_like(rows)
     left[:, bpp:] = rows[:, :-bpp]
@@ -110,7 +126,7 @@ def png_bytes(arr: np.ndarray) -> bytes:
     """Encode (H, W, 3|4) uint8/uint16 as a PNG byte string."""
     h, w, depth, color_type, raw = _png_geometry(arr)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
-    idat = zlib.compress(_filter_scanlines(raw, h), 6)
+    idat = zlib_compress_parallel(_filter_scanlines(raw, h), 6)
     return b"".join(
         [b"\x89PNG\r\n\x1a\n", _chunk(b"IHDR", ihdr), _chunk(b"IDAT", idat), _chunk(b"IEND", b"")]
     )
@@ -133,9 +149,8 @@ def apng_bytes(frames: np.ndarray, fps: float = 30.0, loops: int = 0) -> bytes:
     """Encode (F, H, W, 3|4) uint8/uint16 frames as an animated PNG (the JAX
     package's layout: IHDR, acTL, then per frame an fcTL and the frame's
     IDAT, or fdAT after the first; full-canvas frames, dispose none, blend
-    source). ``loops=0`` loops forever. Deflated by the stdlib's zlib at
-    level 6, so the compressed bytes may differ from the JAX package's
-    parallel deflate; the decompressed frames do not."""
+    source). ``loops=0`` loops forever. Deflated at level 6 as
+    :func:`png_bytes` is."""
     if frames.ndim != 4 or frames.shape[0] < 1:
         raise ValueError(f"expected (F, H, W, C) frames, got {frames.shape}")
     h, w, depth, color_type, _ = _png_geometry(frames[0])
@@ -149,7 +164,7 @@ def apng_bytes(frames: np.ndarray, fps: float = 30.0, loops: int = 0) -> bytes:
         out.append(_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, delay_num,
                                                delay_den, 0, 0)))
         seq += 1
-        data = zlib.compress(_filter_scanlines(raw, h), 6)
+        data = zlib_compress_parallel(_filter_scanlines(raw, h), 6)
         if f == 0:
             out.append(_chunk(b"IDAT", data))
         else:
@@ -215,10 +230,11 @@ _ENCODERS = {"png": png_bytes, "bmp": bmp_bytes, "pam": pam_bytes}
 
 
 def write_image(base_path, image: np.ndarray, *, fmt: str = "png", transparent: bool = True,
-                eight_bit: bool = False, silent: bool = True) -> Path:
+                eight_bit: bool = False, silent: bool = True, announce: bool = True) -> Path:
     """Convert + write; returns the final path with extension
     (reference: main.rs:40-100). "Wrote image to ..." prints even when
-    silent, as in the reference (main.rs:99)."""
+    silent, as in the reference (main.rs:99), unless ``announce`` is False
+    (the CLI's previews)."""
     if fmt not in _ENCODERS:
         raise ValueError(f"unknown format {fmt!r} (png, bmp, pam)")
     if not silent:
@@ -228,5 +244,6 @@ def write_image(base_path, image: np.ndarray, *, fmt: str = "png", transparent: 
     if not silent:
         print("Rendering complete. Writing file.")
     path.write_bytes(_ENCODERS[fmt](arr))
-    print(f"Wrote image to '{path}'.")
+    if announce:
+        print(f"Wrote image to '{path}'.")
     return path

@@ -1,6 +1,7 @@
-// CPU emulation of the CUDA subset the tile bin (csrc/bin_tile.cuh) and the
-// depth bin (csrc/bin_depth.cu) use, for tests/test_torch_tile_emulation.py
-// and tests/test_torch_depth_emulation.py. A block's CUDA threads are fibers of one
+// CPU emulation of the CUDA subset the tile bin (csrc/bin_tile.cuh), the
+// depth bin (csrc/bin_depth.cu) and kernel A (csrc/map_emit.cuh) use, for
+// tests/test_torch_tile_emulation.py, tests/test_torch_depth_emulation.py and
+// tests/test_torch_map_emulation.py. A block's CUDA threads are fibers of one
 // OS thread, run round-robin: a fiber runs until it waits at a barrier (the
 // block's, or its warp's inside a vote, shuffle or reduction) and the next one
 // takes over, so a run is deterministic and an atomic is a plain update.
@@ -14,6 +15,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <algorithm>
 #include <functional>
 #include <memory>
 #include <vector>
@@ -51,9 +53,13 @@ struct Barrier {
   void open_if_full() { if (waiting && waiting == parties) { waiting = 0; ++generation; } }
 };
 struct Warp { Barrier bar; unsigned long long slot[2][32]; };
+// A named barrier (bar.sync / bar.arrive with a thread count): it opens when
+// that many threads have arrived, waiting or not.
+struct Named { unsigned arrived = 0, generation = 0; };
 struct Fiber { ucontext_t context; jmp_buf resume; bool started = false, done = false; };
 inline unsigned char* dyn_smem;
 inline Barrier block_bar;
+inline Named named[16];
 inline Warp* warps;
 inline Fiber* fibers;
 inline jmp_buf scheduler;
@@ -68,6 +74,14 @@ inline void wait(Barrier& b) {
   while (b.generation == g) yield();
 }
 inline void leave(Barrier& b) { --b.parties; b.open_if_full(); }
+inline void named_arrive(int id, unsigned n) {
+  if (++named[id].arrived == n) { named[id].arrived = 0; ++named[id].generation; }
+}
+inline void named_sync(int id, unsigned n) {
+  const unsigned g = named[id].generation;
+  named_arrive(id, n);
+  while (named[id].generation == g) yield();
+}
 inline void run_fiber() {
   kernel();
   fibers[threadIdx.x].done = true;
@@ -95,6 +109,7 @@ template <class F> void launch(unsigned grid, unsigned block, size_t smem, F f) 
     std::vector<unsigned char> mem(smem + 16, 0xAB);
     dyn_smem = mem.data() + ((16 - ((uintptr_t)mem.data() & 15)) & 15);
     block_bar = Barrier{block};
+    for (Named& n : named) n = Named{};
     for (unsigned w = 0; w < block / 32; ++w) warps[w].bar = Barrier{32};
     for (unsigned t = 0; t < block; ++t) {
       fibers[t].started = fibers[t].done = false;
@@ -163,6 +178,7 @@ inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
+using std::min;
 template <class T> T atomicAdd(T* p, T v) { T old = *p; *p = old + v; return old; }
 template <class T> T atomicMin(T* p, T v) { T old = *p; if (v < old) *p = v; return old; }
 template <class T> T atomicMax(T* p, T v) { T old = *p; if (v > old) *p = v; return old; }

@@ -154,7 +154,7 @@ def test_depth_state_colorized_as_gas_raises():
 
 
 @pytest.mark.parametrize("strategy", [sat.BinStrategy.DEPTH_KERNEL, sat.BinStrategy.DEPTH])
-@pytest.mark.parametrize("preset", ["poisson-saturne", "solar-sail"])
+@pytest.mark.parametrize("preset", ["poisson-saturne", "solar-sail", "lorenz", "rossler"])
 def test_short_horizon_depth_render_equals_oracle(preset, strategy):
     """zbuf equals the oracle's after +-0 canonicalization (the reference's
     float test keeps a first -0.0; the kernel strategies store +0.0)."""

@@ -71,8 +71,16 @@ def _jax_steps(jcfg, pts: np.ndarray, steps: int, angle: float,
     ("poisson-saturne", (1920, 1080), 0.0),
     ("poisson-saturne", (320, 180), 0.7),
     ("solar-sail", (640, 360), 0.0),
+    ("lorenz", (320, 180), 0.0),
+    ("rossler", (640, 360), 0.4),
+    ("halvorsen", (320, 180), 0.0),
+    ("aurora-veil", (640, 360), 0.0),
+    ("orchid-ribbon", (320, 180), 1.1),
+    ("delta-kite", (1920, 1080), 0.0),
 ])
 def test_steps_bit_exact_vs_eager_jax(preset, size, angle):
+    """Every preset but thomas, whose sine is the port's own
+    (test_torch_attractors.py bounds its step)."""
     jcfg = jpresets.by_name(preset, width=size[0], height=size[1])
     pts = _lanes(size[0])
     want_f, want_p, want_pts = _jax_steps(jcfg, pts, 3, angle)

@@ -253,7 +253,7 @@ def _short(preset):
 
 
 @pytest.mark.parametrize("strategy", [sat.BinStrategy.EXACT_KERNEL, sat.BinStrategy.EXACT])
-@pytest.mark.parametrize("preset", ["poisson-saturne", "solar-sail"])
+@pytest.mark.parametrize("preset", ["poisson-saturne", "solar-sail", "lorenz", "rossler"])
 def test_short_horizon_exact_render_equals_oracle(preset, strategy):
     """count, steps and zbuf equal ``oracle_render`` exactly."""
     jcfg, seeds = _short(preset)

@@ -69,7 +69,7 @@ def _as_cxx(text: str) -> str:
         grid, block, smem, _ = _split(mo.group(2))
         return f"emu::launch({grid}, {block}, {smem}, [=] {{ {mo.group(1)}({mo.group(3)}); }});"
 
-    text = re.sub(r"([A-Za-z_][\w:]*(?:<[\w:<>]+?>)?)<<<(.*?)>>>\s*\((.*?)\);", launch, text,
+    text = re.sub(r"([A-Za-z_][\w:]*(?:<[\w:<>, ]+?>)?)<<<(.*?)>>>\s*\((.*?)\);", launch, text,
                   flags=re.S)
     return text.replace("extern __shared__ __align__(16) unsigned char smem[];",
                         "unsigned char* smem = emu::dyn_smem;")
