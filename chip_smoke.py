@@ -115,7 +115,32 @@ all passed):
     exact-kernel and two-frame shared-orbit renders of the RK4 presets the
     same way;
 16. 10^9 iterations of each RK4 preset: launches counted, three warm
-    synchronized renders for the rate.
+    synchronized renders for the rate;
+17. kernel A's float64 instantiations (the Sprott map and Lorenz at every
+    launcher shape of phase 2, Thomas at one a kernel, all six modes) and
+    its gated (reseeding) ones (solar-sail and Lorenz, float32 and
+    float64, each kernel at ragged steps, dead lanes of every kind
+    planted, lane ages from -warm-up to 1, chunk indices 0 and 1), and
+    kernel P on each of their shared chunks at two
+    angles, against their plain twins on the card: streams, lane state and
+    ages bit-identical, and each projected frame equal to the fused
+    kernel's stream at that angle; then each float64 mode timed at the
+    flagship shape (poisson-saturne and Lorenz), the gated float32 PACKED
+    chunk in turns with the ungated one, and kernel P on a float64 and on
+    a gated stream at the rotation cell's shape;
+18. 10^6 renders through the kernels and the plain twins, identical
+    planes, launches counted: reseeded solar-sail 1800x2000 in Gas,
+    --depth and a two-frame shared sequence; the float64 flagship through
+    KERNEL, EXACT_KERNEL and a two-frame shared sequence; then a reseeded
+    float64 rotation through the three sequence engines, frames agreeing;
+19. the slice's 10^9 paths at full width: reseeded solar-sail 1800x2000
+    in Gas and --depth, the float64 flagship through KERNEL and
+    EXACT_KERNEL (and solar-sail unreseeded beside them): launches
+    counted, three warm synchronized renders for the rate, and the Gas
+    solar-sail renders' pixel-0 share and useful rate (in-bounds points
+    off pixel (0, 0) a second);
+20. the CLI with ``-p solar-sail --reseed-lanes -i 1e9 -w 1800 -h 2000
+    -8``, launches counted, a lit image.
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -124,9 +149,12 @@ run (``launches``) and in phase 13's 10^9 iterations (``launches_per_1e9``; one
 wrapper call is one launch; for a bin ``cuda_kernels_per_launch`` says how
 many CUDA kernels it started, counted in a trace of the timed chunks, and
 ``cuda_kernels_us`` each one's mean time), and a PyTorch yardstick (``library_ms``, or null with
-``library_note``); kernel A has a row per RK4 map beside the Sprott one.
-The line before it holds the encoder that ran, the 1e8 frame's wall split
-and the rotation's encode time.
+``library_note``); kernel A has a row per RK4 map beside the Sprott one,
+and rows for its gated and float64 instantiations (the latter's bound at
+the card's float64 peak, with a row per mode), kernel P rows for float64
+and gated streams. The line before it holds the encoder that ran, the 1e8
+frame's wall split, the rotation's encode time, phase 19's rates and
+pixel-0 shares, and each phase's seconds.
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -181,7 +209,8 @@ def _time_ms(fn, reps: int, warm: int = 2) -> float:
 def _check_equal(name: str, a: torch.Tensor, b: torch.Tensor) -> float:
     """Raise unless ``a`` and ``b`` are bit-identical; return the max abs
     difference (0.0: NaN lanes of escaped orbits compare by their bits)."""
-    bits = (lambda t: t.view(torch.int32)) if a.dtype == torch.float32 else (lambda t: t)
+    views = {torch.float32: torch.int32, torch.float64: torch.int64}
+    bits = (lambda t: t.view(views[a.dtype])) if a.dtype in views else (lambda t: t)
     if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
         diff = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
         raise AssertionError(f"{name}: kernel differs from its plain twin "
@@ -252,10 +281,11 @@ PLANE_BYTES = {"packed": 16, "depth": 8, "exact": 24}
 LIBRARY_NOTE = "no single PyTorch call computes it"
 
 
-def _bound(nbytes: float, ops: float) -> dict:
+def _bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the float32 rate."""
-    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    the memory rate and the operations over the rate of their type
+    (float32 unless ``peak_ops`` says otherwise)."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
     return {"bytes": nbytes, "flops": ops, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -518,23 +548,32 @@ def _deliver(sat, cfg, state, out_base: Path, times: Optional[dict] = None):
 
 
 def _counters() -> dict:
-    """Every kernel wrapper's launch counter, by kernel name."""
+    """Every kernel wrapper's launch counter, by kernel name: (wrapper,
+    counter attribute). Kernel A's wrapper also counts the launches of its
+    float64 and of its gated instantiations, kernel P's those on a float64
+    stream."""
     from strange_attractor_tpu_torch.ops import emit, kernel_binning as kb
 
-    return {"map_emit": emit.map_emit, "project_emit": emit.project_emit,
-            "bin_packed": kb.bin_chunk_kernel, "bin_depth": kb.bin_chunk_kernel_depth,
-            "bin_exact": kb.bin_chunk_kernel_exact, "bin_exact16": kb.bin_chunk_kernel_exact16}
+    return {"map_emit": (emit.map_emit, "launches"),
+            "map_emit_f64": (emit.map_emit, "f64_launches"),
+            "map_emit_gated": (emit.map_emit, "gated_launches"),
+            "project_emit": (emit.project_emit, "launches"),
+            "project_emit_f64": (emit.project_emit, "f64_launches"),
+            "bin_packed": (kb.bin_chunk_kernel, "launches"),
+            "bin_depth": (kb.bin_chunk_kernel_depth, "launches"),
+            "bin_exact": (kb.bin_chunk_kernel_exact, "launches"),
+            "bin_exact16": (kb.bin_chunk_kernel_exact16, "launches")}
 
 
 def _zero_counters() -> dict:
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     return counters
 
 
 def _require_launches(tag: str, counters: dict, kernels: tuple) -> dict:
-    launches = {name: counters[name].launches for name in kernels}
+    launches = {name: getattr(*counters[name]) for name in kernels}
     if min(launches.values()) < 1:
         raise AssertionError(f"{tag}: the run did not go through every kernel: {launches}")
     return launches
@@ -1249,12 +1288,21 @@ MAP_OPS = {"sprott": 60, "lorenz": 39 + 4 * 8, "rossler": 39 + 4 * 7,
 # chunk, the 32-lane ring with a partial last tile, and a ragged 1000 lanes
 # on the 16-lane ring
 RK4_SHAPES = ((LANES, CHUNK, 0.0), (16384, 77, 0.3), (1000, 77, 0.7))
+# the warm-up steps held kernel against twin before the kernel alone carries
+# the orbits on to the config's warm-up (a twin's step is hundreds of eager
+# launches, milliseconds on the card)
+CHECKED_WARMUP = 100
+# the warm-up of phase 15's kernel-vs-twin renders: their depth is cut, not
+# their path
+TWIN_WARMUP = 100
 
 
 def phase_rk4_kernel_a(sat, dev) -> dict:
     """Kernel A for each RK4 map, and the Sprott map again, against its
-    plain twin in all six modes at every launcher shape; then the PACKED
-    chunk of each map timed at the flagship shape."""
+    plain twin in all six modes at every launcher shape (the first
+    CHECKED_WARMUP steps of the warm-up, then two PACKED chunks and one of
+    every other mode: the lane state is the same in every mode); then the
+    PACKED chunk of each map timed at the flagship shape."""
     from strange_attractor_tpu_torch.ops import emit
 
     B = sat.BinStrategy
@@ -1269,12 +1317,14 @@ def phase_rk4_kernel_a(sat, dev) -> dict:
             tag = f"[14] {preset} {lanes} x {steps}"
             seeds = torch.from_numpy((rng.random((3, lanes)) * 0.1).astype(np.float32)).to(dev)
             pk, pp = seeds.clone(), seeds.clone()
-            emit.map_emit(spec, pk, cfg.warmup, emit=False)
-            emit.map_emit_plain(spec, pp, cfg.warmup, emit=False)
+            emit.map_emit(spec, pk, CHECKED_WARMUP, emit=False)
+            emit.map_emit_plain(spec, pp, CHECKED_WARMUP, emit=False)
             err = max(err, _check_equal(f"{tag} warm-up state", pk, pp))
+            emit.map_emit(spec, pk, cfg.warmup - CHECKED_WARMUP, emit=False)
+            pp.copy_(pk)
             for name, kind, shared in kinds:
                 k, q = pk.clone(), pp.clone()
-                for c in range(2):
+                for c in range(2 if name == "packed" else 1):
                     if shared:
                         got = emit.map_emit_shared(spec, k, steps, kind=kind)
                         want = emit.map_emit_shared_plain(spec, q, steps, kind=kind)
@@ -1285,14 +1335,15 @@ def phase_rk4_kernel_a(sat, dev) -> dict:
                               _check_equal(f"{tag} {name} chunk {c} state", k, q))
                 if name == "packed":
                     flat = got[0]
-            print(f"{tag}, angle {angle}: warm-up + 2 chunks bit-identical in all six modes "
+            print(f"{tag}, angle {angle}: warm-up, 2 PACKED chunks and one of each other mode "
+                  f"bit-identical "
                   f"(on the canvas {float((flat < W * H).float().mean()):.3f}, pixel-0 share "
                   f"{float((flat == 0).float().mean()):.3f})")
         spec = emit.emit_spec(cfg, 0.0)
         pts = torch.from_numpy((rng.random((3, LANES)) * 0.1).astype(np.float32)).to(dev)
         emit.map_emit(spec, pts, cfg.warmup, emit=False)
         ms = _time_ms(lambda: emit.map_emit(spec, pts, CHUNK), reps=20)
-        plain_ms = _time_ms(lambda: emit.map_emit_plain(spec, pts, CHUNK), reps=2, warm=1)
+        plain_ms = _time_ms(lambda: emit.map_emit_plain(spec, pts, CHUNK), reps=1, warm=0)
         rows[preset] = {"ms": ms, "plain_ms": plain_ms}
         print(f"[14] {preset} PACKED {LANES} lanes x {CHUNK} steps: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
@@ -1303,9 +1354,10 @@ def phase_presets(sat, dev, out_dir: Path, card: str) -> dict:
     """Each of the nine presets through the CLI entry point at 1920x1080,
     10^8 iterations, 8-bit PNG, seed 1, with every launch count at 0 just
     before it (the state checkpointed by --save-state, to read the image
-    back); for each new preset, kernel against plain-twin renders: a 10^6
-    Gas render, and for the RK4 presets 2x10^5 renders through --depth,
-    exact-kernel and a two-frame shared-orbit sequence."""
+    back); for each new preset, kernel against plain-twin renders with a
+    TWIN_WARMUP-step warm-up: a 10^6 Gas render, and for the RK4 presets
+    2x10^5 renders through --depth, exact-kernel and a two-frame
+    shared-orbit sequence."""
     from strange_attractor_tpu_torch import cli
     from strange_attractor_tpu_torch.ops import emit
     from strange_attractor_tpu_torch.render import seed_generator
@@ -1334,7 +1386,8 @@ def phase_presets(sat, dev, out_dir: Path, card: str) -> dict:
         runs[preset] = {"launches": launches, "lit": lit, "wall": wall}
         if preset not in NEW_PRESETS:  # phases 5 and 9 hold these to their twins
             continue
-        cfg = sat.presets.by_name(preset, iterations=1_000_000, width=W, height=H, seed=1)
+        cfg = sat.presets.by_name(preset, iterations=1_000_000, width=W, height=H, seed=1,
+                                  warmup=TWIN_WARMUP)
         lanes, chunk, _ = sat.plan_schedule(cfg)
         cfg = cfg.replace(lanes=lanes, chunk_steps=chunk, bin_strategy=B.KERNEL)
         kern = sat.render(cfg, device=dev)
@@ -1363,9 +1416,9 @@ def phase_presets(sat, dev, out_dir: Path, card: str) -> dict:
             for name in ("count", "packed"):
                 _check_equal(f"[15] {preset} shared frame {f} {name}", getattr(k, name),
                              getattr(q, name))
-    print(f"[15] 1e6 renders of {', '.join(NEW_PRESETS)}: kernels and plain twins give "
-          f"identical planes; 2e5 --depth, exact-kernel and shared-orbit renders of the RK4 "
-          f"presets too")
+    print(f"[15] 1e6 renders of {', '.join(NEW_PRESETS)} ({TWIN_WARMUP}-step warm-up): kernels "
+          f"and plain twins give identical planes; 2e5 --depth, exact-kernel and shared-orbit "
+          f"renders of the RK4 presets too")
     return runs
 
 
@@ -1376,6 +1429,346 @@ def phase_rk4_renders(sat, dev, card: str) -> dict:
         sat, dev, sat.presets.by_name(preset, iterations=10**9, width=W, height=H, seed=1,
                                       silent=True),
         f"[16] {preset}", card, ("map_emit", "bin_packed")) for preset in RK4_PRESETS}
+
+
+# Lane reseeding and the float64 compute path (phases 17-20)
+
+# the card's float64 peak outside the tensor cores (NVIDIA H100 SXM data
+# sheet: 33.5 TFLOP/s, half the float32 rate)
+PEAK_OPS_F64 = 33.5e12
+# phase 2's launcher shapes: the ILP kernel (and a ragged tail of its 8-step
+# batches), the 32-lane ring (and a partial 24-step tile), the 16-lane ring
+# on a ragged 1000 lanes at another angle
+AXES_SHAPES = ((LANES, CHUNK, 0.0), (LANES, 77, 0.0), (16384, CHUNK, 0.3), (16384, 77, 0.3),
+               (1000, 77, 0.7))
+# the kernel-vs-twin cases' warm-up, and a re-warm short enough that a lane
+# reseeded in a chunk emits again within it (a render's are 1000)
+AXES_WARMUP, AXES_REWARM = 200, 60
+AXES_KEY = 0x0123456789ABCDEF
+# phase 18's 10^6 kernel-vs-twin renders: the main path's 32768 lanes, a
+# 16-step warm-up and four pinned chunks of 8 steps, so that a lane reseeded
+# in chunk 1 emits again in chunk 3 (the auto schedule is one chunk of 1953
+# steps at 512 lanes after 1000, and a twin's step costs milliseconds)
+AXES_RENDER_WARMUP, AXES_RENDER_CHUNK = 16, 8
+EMIT_KINDS = (("packed", "PACKED", False), ("depth", "DEPTH", False), ("exact", "EXACT", False),
+              ("shared", "PACKED", True), ("shared-depth", "DEPTH", True))
+
+
+def _plant_dead(points: tuple, rng) -> torch.Tensor:
+    """Plant dead lanes of every kind (NaN, +-inf, just above 1e3; 1e3
+    itself lives) in each of ``points``' (3, lanes) tensors alike, one lane
+    in 50; return lane ages from -AXES_REWARM - 20 to 1 on their device."""
+    pts = points[0]
+    lanes = pts.shape[1]
+    big = float(np.nextafter(np.float32(1e3), np.float32(np.inf))
+                if pts.dtype == torch.float32 else np.nextafter(1e3, np.inf))
+    values = (math.nan, math.inf, -math.inf, big, -big, 1e3)
+    for i, lane in enumerate(rng.choice(lanes, max(6, lanes // 50), replace=False)):
+        for p in points:
+            p[i % 3, int(lane)] = values[i % len(values)]
+    ages = rng.integers(-AXES_REWARM - 20, 2, lanes).astype(np.int32)
+    return torch.from_numpy(ages).to(pts.device)
+
+
+def _axes_case(sat, dev, cfg, lanes: int, steps: int, angle: float, rng, gated: bool,
+               tag: str) -> dict:
+    """Kernel A against its twin on the card at one launcher shape in
+    ``cfg``'s compute dtype: the warm-up, then in every emitting mode two
+    chunks (with ``gated``: dead lanes planted, random ages, chunk indices
+    0 and 1, a lane dying between them; ungated, one chunk of each mode but
+    PACKED: the lane state is the same in every mode), streams, lane state
+    and ages bit-identical after each; kernel P against its twin on each shared
+    chunk at two angles, and its frame against the fused kernel's stream
+    of the same lanes at that angle."""
+    from strange_attractor_tpu_torch.ops import emit
+
+    B = sat.BinStrategy
+    dtype = emit.DTYPES[cfg.dtype]
+    spec, other = emit.emit_spec(cfg, angle), emit.emit_spec(cfg, angle + 1.9)
+    seeds = torch.from_numpy(rng.random((3, lanes)) * 0.1).to(dev, dtype)
+    pk, pp = seeds.clone(), seeds.clone()
+    emit.map_emit(spec, pk, AXES_WARMUP, emit=False)
+    emit.map_emit_plain(spec, pp, AXES_WARMUP, emit=False)
+    err = _check_equal(f"{tag} warm-up state", pk, pp)
+    ages = _plant_dead((pk, pp), rng) if gated else None
+    stats = {}
+    for name, kind_name, shared in EMIT_KINDS:
+        kind = getattr(B, kind_name)
+        k, q, f = pk.clone(), pp.clone(), pp.clone()
+        ak, aq, af = ((ages.clone(), ages.clone(), ages.clone()) if gated else (None,) * 3)
+        for c in range(2 if gated or name == "packed" else 1):
+            rk, rq, rf = [emit.Reseed(a, AXES_KEY, c, AXES_REWARM) if gated else None
+                          for a in (ak, aq, af)]
+            if shared:
+                got = emit.map_emit_shared(spec, k, steps, kind=kind, reseed=rk)
+                want = emit.map_emit_shared_plain(spec, q, steps, kind=kind, reseed=rq)
+            else:
+                got = emit.map_emit(spec, k, steps, kind=kind, reseed=rk)
+                want = emit.map_emit_plain(spec, q, steps, kind=kind, reseed=rq)
+            t = f"{tag} {name} chunk {c}"
+            err = max(err, _check_streams(t, got, want), _check_equal(f"{t} state", k, q))
+            if gated:
+                err = max(err, _check_equal(f"{t} ages", ak, aq))
+            if shared:  # kernel P on this chunk, and against the fused stream
+                for sp in (spec, other):
+                    frame = emit.project_emit(sp, got, kind=kind)
+                    err = max(err, _check_streams(f"{t} frame", frame,
+                                                  emit.project_emit_plain(sp, want, kind=kind)))
+                fused = emit.map_emit(other, f, steps, kind=kind, reseed=rf)
+                err = max(err, _check_streams(f"{t} frame vs fused", frame, fused))
+                stats["gated_fj"] = stats.get("gated_fj", 0) + int(torch.isinf(got[2]).sum())
+            elif name == "packed":
+                stats["pixel0"] = float((got[0] == 0).float().mean())
+                stats["on_canvas"] = float((got[0] < cfg.width * cfg.height).float().mean())
+            if gated and c == 0:  # a lane that dies in a later chunk
+                for p in (k, q, f):
+                    p[0, 3] = math.nan
+    return {"err": err, **stats}
+
+
+def phase_axes_kernels(sat, dev) -> dict:
+    """Kernel A's gated and float64 instantiations and kernel P's against
+    their twins on the card (_axes_case): float64 for the Sprott map and
+    Lorenz at every launcher shape of phase 2, Thomas (whose costly twin
+    differs from Lorenz' in the map step alone) at the flagship shape;
+    gated for the escaping solar-sail in float32 at every launcher shape
+    and in float64 at one a kernel, and for Lorenz in both at the flagship
+    shape: the reseeded 10^9 render's 32768 x 128 chunk is among them.
+    Then the times: each float64 emission mode at the flagship shape
+    (poisson-saturne and Lorenz), the gated float32 PACKED chunk in turns
+    with the ungated one, and kernel P on float64 and gated streams at the
+    rotation cell's shape."""
+    from strange_attractor_tpu_torch.ops import emit
+
+    B = sat.BinStrategy
+    rng = np.random.default_rng(17)
+    err = 0.0
+    flagship = AXES_SHAPES[:1]
+    cases = (("poisson-saturne", "float64", False, AXES_SHAPES),
+             ("lorenz", "float64", False, AXES_SHAPES), ("thomas", "float64", False, flagship),
+             ("solar-sail", "float32", True, AXES_SHAPES),
+             ("solar-sail", "float64", True, AXES_SHAPES[::2]),
+             ("lorenz", "float32", True, flagship), ("lorenz", "float64", True, flagship))
+    for preset, dtype, gated, shapes in cases:
+        cfg = sat.presets.by_name(preset, width=W, height=H, dtype=dtype)
+        for lanes, steps, angle in shapes:
+            tag = f"[17] {preset} {dtype}{' gated' if gated else ''} {lanes} x {steps}"
+            row = _axes_case(sat, dev, cfg, lanes, steps, angle, rng, gated, tag)
+            err = max(err, row.pop("err"))
+            print(f"{tag}, angle {angle}: warm-up and every mode's chunks bit-identical, "
+                  f"kernel P too ({row})")
+    # times at the flagship chunk shape
+    ms, plain_ms = {}, {}
+    for preset in ("poisson-saturne", "lorenz"):
+        cfg = sat.presets.by_name(preset, width=W, height=H, dtype="float64")
+        spec = emit.emit_spec(cfg, 0.0)
+        pts = torch.from_numpy(rng.random((3, LANES)) * 0.1).to(dev)
+        emit.map_emit(spec, pts, cfg.warmup, emit=False)
+        for name, kind_name, shared in EMIT_KINDS:
+            fn = emit.map_emit_shared if shared else emit.map_emit
+            kind = getattr(B, kind_name)
+            ms[f"{preset} {name}"] = _time_ms(lambda: fn(spec, pts, CHUNK, kind=kind), reps=20)
+        plain_ms[preset] = _time_ms(lambda: emit.map_emit_plain(spec, pts, CHUNK), reps=1, warm=0)
+        print(f"[17] {preset} float64 {LANES} x {CHUNK}: " + ", ".join(
+            f"{k.split(' ', 1)[1]} {v:.4f} ms" for k, v in ms.items() if k.startswith(preset))
+            + f"; plain PACKED {plain_ms[preset]:.4f} ms")
+    cfg = sat.presets.poisson_saturne(width=W, height=H)
+    spec = emit.emit_spec(cfg, 0.0)
+    pts = torch.from_numpy((rng.random((3, LANES)) * 0.1).astype(np.float32)).to(dev)
+    emit.map_emit(spec, pts, cfg.warmup, emit=False)
+    age = torch.ones(LANES, dtype=torch.int32, device=dev)
+    reseed = emit.Reseed(age, AXES_KEY, 0, cfg.warmup)
+    turns = {"ungated": [], "gated": []}
+    for name in ("ungated", "gated", "gated", "ungated"):
+        r = reseed if name == "gated" else None
+        turns[name].append(_time_ms(lambda: emit.map_emit(spec, pts, CHUNK, reseed=r), reps=50))
+    gated_plain = _time_ms(lambda: emit.map_emit_plain(spec, pts, CHUNK, reseed=reseed), reps=1,
+                           warm=0)
+    print(f"[17] float32 PACKED {LANES} x {CHUNK} in turns: ungated "
+          + ", ".join(f"{v:.4f}" for v in turns["ungated"]) + " ms, gated "
+          + ", ".join(f"{v:.4f}" for v in turns["gated"])
+          + f" ms; gated plain {gated_plain:.4f} ms")
+    # kernel P at the rotation cell's shape, on a float64 and on a gated stream
+    proj = {}
+    for label, dtype, gated in (("f64", "float64", False), ("gated", "float32", True)):
+        cfg = sat.presets.solar_sail(width=W, height=H, dtype=dtype)
+        spec0, spec = emit.emit_spec(cfg, 0.0), emit.emit_spec(cfg, 1.1)
+        pts = torch.from_numpy(rng.random((3, SEQ_LANES)) * 0.1).to(dev, emit.DTYPES[dtype])
+        emit.map_emit(spec0, pts, cfg.warmup, emit=False)
+        r = None
+        if gated:
+            r = emit.Reseed(_plant_dead((pts,), rng), AXES_KEY, 0, cfg.warmup)
+        stream = emit.map_emit_shared(spec0, pts, SEQ_CHUNK, reseed=r)
+        proj[label] = {"ms": _time_ms(lambda: emit.project_emit(spec, stream), reps=50),
+                       "plain_ms": _time_ms(lambda: emit.project_emit_plain(spec, stream),
+                                            reps=10, warm=1),
+                       "gated_share": float(torch.isinf(stream[2]).float().mean())}
+        print(f"[17] project_emit {label} {SEQ_LANES} x {SEQ_CHUNK}: {proj[label]['ms']:.4f} ms, "
+              f"plain {proj[label]['plain_ms']:.4f} ms (gated share "
+              f"{proj[label]['gated_share']:.4f})")
+    return {"err": err, "f64_ms": ms, "f64_plain_ms": plain_ms, "turns": turns,
+            "gated_plain_ms": gated_plain, "project": proj}
+
+
+def _reseeded(sat, iterations: int, **kw):
+    return _solar_sail(sat, iterations, reseed_lanes=True, **kw)
+
+
+def _same_states(tag: str, a, b) -> None:
+    for name, g in a._asdict().items():
+        if g is not None:
+            _check_equal(f"{tag} {name}", g, getattr(b, name))
+
+
+def phase_axes_twins(sat, dev) -> dict:
+    """10^6 renders through the kernels and through the plain twins in
+    four chunks (_twin_pair), identical planes, each kernel run with the
+    launch counts at 0 just before it: the reseeded solar-sail 1800x2000
+    in Gas (KERNEL against
+    PACKED), --depth (DEPTH_KERNEL against DEPTH) and a two-frame shared
+    sequence; the float64 flagship through KERNEL, EXACT_KERNEL and a
+    two-frame shared sequence."""
+    from strange_attractor_tpu_torch.render import frame_generator, seeds_and_key
+
+    B = sat.BinStrategy
+    launches = {}
+    depth = sat.RenderKind.DEPTH
+    pairs = (("reseed gas", _reseed_pair(sat, B.KERNEL, B.PACKED),
+              ("map_emit_gated", "bin_packed")),
+             ("reseed depth", _reseed_pair(sat, B.DEPTH_KERNEL, B.DEPTH, render=depth),
+              ("map_emit_gated", "bin_depth")),
+             ("f64 kernel", _f64_pair(sat, B.KERNEL, B.PACKED), ("map_emit_f64", "bin_packed")),
+             ("f64 exact-kernel", _f64_pair(sat, B.EXACT_KERNEL, B.EXACT),
+              ("map_emit_f64", "bin_exact")))
+    for label, (kern, plain), kernels in pairs:
+        counters = _zero_counters()
+        k = sat.render(kern, device=dev)
+        torch.cuda.synchronize()
+        launches[label] = _require_launches(f"[18] {label}", counters, kernels)
+        _same_states(f"[18] 1e6 {label}", k, sat.render(plain, device=dev))
+        print(f"[18] 1e6 {label}, {LANES} lanes, {AXES_RENDER_WARMUP}-step warm-up and chunks "
+              f"of {AXES_RENDER_CHUNK}: kernels and plain twins give identical planes "
+              f"(launches {launches[label]})")
+    for label, cfg, kernels in (
+            ("reseed shared", _reseed_pair(sat, B.KERNEL, B.PACKED)[0],
+             ("map_emit_gated", "project_emit", "bin_packed")),
+            ("f64 shared", _f64_pair(sat, B.KERNEL, B.PACKED)[0],
+             ("map_emit_f64", "project_emit_f64", "bin_packed"))):
+        seeds, key = seeds_and_key(cfg, frame_generator(cfg, 0))
+        seeds = seeds.to(dev)
+        angles = (0.0, math.radians(140.0))
+        counters = _zero_counters()
+        frames = sat.render_seeds_shared(cfg, seeds, angles, reseed_key=key)
+        torch.cuda.synchronize()
+        launches[label] = _require_launches(f"[18] {label}", counters, kernels)
+        for f, (k, q) in enumerate(zip(frames, sat.render_seeds_shared(
+                cfg, seeds, angles, plain=True, reseed_key=key))):
+            _same_states(f"[18] {label} frame {f}", k, q)
+        print(f"[18] 1e6 {label} sequence, 2 frames: kernels and twins give identical planes "
+              f"(launches {launches[label]})")
+    # the three sequence engines with both axes at once, at 10^6 a frame:
+    # the per-frame engines frame for frame alike, a shared batch's first
+    # frame theirs
+    cfg = _flagship(sat, 1_000_000, dtype="float64", reseed_lanes=True)
+    counters = _zero_counters()
+    shared = sat.render_sequence_shared(cfg, [0.0, 90.0], frames_per_batch=2, device=dev)
+    batched = sat.render_sequence_batched(cfg, [0.0, 90.0], frames_per_batch=2, device=dev)
+    single = [img for _, img in sat.render_sequence(cfg, 0.0, 180.0, 90.0, device=dev)]
+    launches["sequence engines"] = _require_launches(
+        "[18] sequence engines", counters,
+        ("map_emit_f64", "map_emit_gated", "project_emit_f64", "bin_packed"))
+    if not (np.array_equal(shared[0], batched[0])
+            and all(np.array_equal(batched[f], single[f]) for f in range(2))):
+        raise AssertionError("[18] the sequence engines' float64 reseeded frames differ")
+    print(f"[18] 1e6 float64 reseeded rotation through render_sequence_shared, "
+          f"render_sequence_batched and render_sequence: frames agree (launches "
+          f"{launches['sequence engines']})")
+    return launches
+
+
+def _twin_pair(cfg, kernel, plain) -> tuple:
+    """``cfg`` with phase 18's warm-up and chunks, through ``kernel`` and
+    through ``plain``."""
+    cfg = cfg.replace(lanes=LANES, warmup=AXES_RENDER_WARMUP, chunk_steps=AXES_RENDER_CHUNK)
+    return cfg.replace(bin_strategy=kernel), cfg.replace(bin_strategy=plain)
+
+
+def _reseed_pair(sat, kernel, plain, **kw) -> tuple:
+    return _twin_pair(_reseeded(sat, 1_000_000, **kw), kernel, plain)
+
+
+def _f64_pair(sat, kernel, plain) -> tuple:
+    return _twin_pair(_flagship(sat, 1_000_000, dtype="float64"), kernel, plain)
+
+
+def _pixel0(sat, dev, cfg, rate: float) -> dict:
+    """One more render of the Gas ``cfg``: the share of its emitted points
+    at pixel (0, 0) (count[0] over the points emitted) and the in-bounds
+    points off pixel (0, 0) a second at ``rate`` iterations a second."""
+    from strange_attractor_tpu_torch.ops.binning import u32
+
+    lanes, chunk, nchunks = sat.plan_schedule(cfg)
+    executed = lanes * chunk * nchunks
+    count = u32(sat.render(cfg, device=dev).count.reshape(-1))
+    total, flood = int(count.sum()), int(count[0])
+    return {"pixel0_share": flood / executed, "on_canvas_share": total / executed,
+            "useful_per_s": (total - flood) / executed * rate}
+
+
+def phase_axes_renders(sat, dev, card: str) -> dict:
+    """The slice's four paths at 10^9 and full width (solar-sail 1800x2000
+    with reseeding in Gas and --depth, the float64 flagship through KERNEL
+    and EXACT_KERNEL), each with the launch counts at 0 just before its
+    first render, then three warm synchronized renders for the rate; the
+    Gas solar-sail's pixel-0 share and useful rate, with and without
+    reseeding."""
+    B = sat.BinStrategy
+    paths = {
+        "solar_sail": (_solar_sail(sat, 10**9), ("map_emit", "bin_packed")),
+        "reseed_solar_sail": (_reseeded(sat, 10**9), ("map_emit_gated", "bin_packed")),
+        "reseed_solar_sail_depth": (_reseeded(sat, 10**9, render=sat.RenderKind.DEPTH),
+                                    ("map_emit_gated", "bin_depth")),
+        "f64_flagship": (_flagship(sat, 10**9, dtype="float64"), ("map_emit_f64", "bin_packed")),
+        "f64_flagship_exact": (_flagship(sat, 10**9, dtype="float64",
+                                         bin_strategy=B.EXACT_KERNEL),
+                               ("map_emit_f64", "bin_exact")),
+    }
+    out = {name: _render_rates(sat, dev, cfg, f"[19] {name}", card, kernels)
+           for name, (cfg, kernels) in paths.items()}
+    for name in ("solar_sail", "reseed_solar_sail"):
+        rate = max(out[name]["iters_per_s"])
+        out[name]["flood"] = _pixel0(sat, dev, paths[name][0], rate)
+        print(f"[19] {name} 10^9: pixel-0 share {out[name]['flood']['pixel0_share']:.6f} of the "
+              f"points emitted, on the canvas {out[name]['flood']['on_canvas_share']:.4f}, "
+              f"useful {out[name]['flood']['useful_per_s']:.4e} points/s on {card}")
+    return out
+
+
+def phase_axes_cli(sat, dev, out_dir: Path, card: str) -> dict:
+    """The slice's CLI path: ``-p solar-sail --reseed-lanes -i 1e9 -w 1800
+    -h 2000 -8`` through ``cli.main``, with the launch counts at 0 just
+    before it; the state checkpointed by --save-state to read the image
+    back: lit, with the gated kernel and the bin launched."""
+    from strange_attractor_tpu_torch import cli
+
+    out, npz = out_dir / "reseed", out_dir / "reseed.npz"
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["-p", "solar-sail", "--reseed-lanes", "-i", "1000000000", "-w", "1800", "-h",
+              "2000", "-8", "-q", "--seed", "1", "-o", str(out), "--save-state", str(npz)])
+    wall = time.perf_counter() - t0
+    launches = _require_launches("[20] cli", counters, ("map_emit", "map_emit_gated",
+                                                        "bin_packed"))
+    cfg = _reseeded(sat, 10**9)
+    img = sat.colorize(cfg, sat.load_state(str(npz), device=dev))[..., :3]
+    lit = float((img.to(torch.int32).amax(dim=-1) > 0).float().mean())
+    if not lit > 0.02:
+        raise AssertionError(f"[20] reseeded solar-sail: image nearly blank: lit fraction {lit}")
+    size = out.with_suffix(".png").stat().st_size
+    print(f"[20] cli -p solar-sail --reseed-lanes 1800x2000 1e9 8-bit: lit {lit:.3f}, launches "
+          f"{launches}, {size} bytes of PNG, wall {wall:.4f} s (with the checkpoint) on {card}")
+    return {"launches": launches, "lit": lit, "wall": wall}
 
 
 _SOURCE = "strange_attractor_tpu_torch/csrc/"
@@ -1411,6 +1804,77 @@ def _map_bound(preset: str, lanes: int, steps: int) -> dict:
     points = lanes * steps
     ops = EMIT_OPS["packed"] - MAP_OPS["sprott"] + MAP_OPS[preset]
     return _bound(EMIT_BYTES["packed"] * points + 2 * 12 * lanes, ops * points)
+
+
+# per point of each emission mode: operations (EMIT_OPS; SHARED_DEPTH
+# skips the color transform's 26) and bytes written in float64 (the fused
+# modes' z and val stay float32; the shared stream is xc, zc, fj[, val] in
+# float64)
+AXES_OPS = {"packed": 124, "depth": 98, "exact": 124, "shared": 106, "shared-depth": 80}
+AXES_F64_BYTES = {"packed": 8, "depth": 8, "exact": 12, "shared": 32, "shared-depth": 24}
+# the gate's two operations a point (the age's add and compare) and a
+# launch's dead-lane test and age a lane (six compares, 8 bytes)
+GATE_OPS, GATE_LANE_OPS, GATE_LANE_BYTES = 2, 6, 8
+
+
+def _axes_bound(kind: str, lanes: int, steps: int, f64: bool = False, gated: bool = False,
+                preset: str = "sprott") -> dict:
+    """Kernel A's bound for one chunk in float64 (at the FP64 peak) or
+    gated: its streams and its lane state once, and its operations."""
+    points = lanes * steps
+    ops = (AXES_OPS[kind] - MAP_OPS["sprott"] + MAP_OPS[preset]) * points
+    nbytes = (AXES_F64_BYTES if f64 else {**EMIT_BYTES, "shared-depth": 12})[kind] * points
+    nbytes += 2 * (24 if f64 else 12) * lanes
+    if gated:
+        ops += GATE_OPS * points + GATE_LANE_OPS * lanes
+        nbytes += GATE_LANE_BYTES * lanes
+    return _bound(nbytes, ops, PEAK_OPS_F64 if f64 else PEAK_OPS)
+
+
+def _axes_rows(axes, axes_twins, axes_renders, axes_cli) -> list:
+    """The ``kernels`` rows of kernel A's gated and float64 instantiations
+    and kernel P's float64 and gated streams."""
+    no_library = {"library_ms": None, "library_note": LIBRARY_NOTE}
+    turns = axes["turns"]
+    f64_ms = axes["f64_ms"]
+    proj = axes["project"]
+    points = SEQ_LANES * SEQ_CHUNK
+    return [{
+        "name": "map_emit_gated", "route": "cuda", "source": _SOURCE + "map_emit.cu",
+        "replaces": "strange_attractor_tpu/render.py:421",
+        "launches": axes_cli["launches"]["map_emit_gated"], "max_abs_err": axes["err"],
+        "ms": sum(turns["gated"]) / len(turns["gated"]), "plain_ms": axes["gated_plain_ms"],
+        **_axes_bound("packed", LANES, CHUNK, gated=True),
+        "ungated_ms_in_turns": turns["ungated"], "gated_ms_in_turns": turns["gated"],
+        "launches_per_1e9": axes_renders["reseed_solar_sail"]["launches"]["map_emit_gated"],
+        **no_library,
+    }, {
+        "name": "map_emit_f64", "route": "cuda", "source": _SOURCE + "map_emit_f64.cu",
+        "replaces": "strange_attractor_tpu/render.py:410",
+        "launches": axes_renders["f64_flagship"]["launches"]["map_emit_f64"],
+        "max_abs_err": axes["err"], "ms": f64_ms["poisson-saturne packed"],
+        "plain_ms": axes["f64_plain_ms"]["poisson-saturne"],
+        **_axes_bound("packed", LANES, CHUNK, f64=True), "ops_peak": "FP64 33.5 TFLOP/s",
+        "modes": {kind: {"ms": f64_ms[f"poisson-saturne {kind}"],
+                         **_axes_bound(kind, LANES, CHUNK, f64=True)} for kind in AXES_OPS},
+        "lorenz": {"ms": f64_ms["lorenz packed"], "plain_ms": axes["f64_plain_ms"]["lorenz"],
+                   **_axes_bound("packed", LANES, CHUNK, f64=True, preset="lorenz")},
+        "launches_per_1e9": axes_renders["f64_flagship"]["launches"]["map_emit_f64"],
+        **no_library,
+    }, {
+        "name": "project_emit_f64", "route": "cuda", "source": _SOURCE + "project_emit.cu",
+        "replaces": "strange_attractor_tpu/render.py:246",
+        "launches": axes_twins["f64 shared"]["project_emit_f64"], "max_abs_err": axes["err"],
+        "ms": proj["f64"]["ms"], "plain_ms": proj["f64"]["plain_ms"],
+        **_bound(40 * points, EMIT_OPS["project"] * points, PEAK_OPS_F64),
+        "ops_peak": "FP64 33.5 TFLOP/s", "launches_per_1e9": None, **no_library,
+    }, {
+        "name": "project_emit_gated", "route": "cuda", "source": _SOURCE + "project_emit.cu",
+        "replaces": "strange_attractor_tpu/render.py:261",
+        "launches": axes_twins["reseed shared"]["project_emit"], "max_abs_err": axes["err"],
+        "ms": proj["gated"]["ms"], "plain_ms": proj["gated"]["plain_ms"],
+        **_emit_bound("project", SEQ_LANES, SEQ_CHUNK), "launches_per_1e9": None, **no_library,
+    }]
 
 
 def _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders, rk4, preset_runs,
@@ -1482,29 +1946,44 @@ def main() -> int:
     cuda_lib.library()
     print(f"[1] built and loaded {cuda_lib.library_path().name} in "
           f"{time.perf_counter() - t:.2f} s")
-    a = phase_kernel_a(sat, dev)
-    b = phase_kernel_b(sat, dev)
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(phase: str, result=None):
+        """``result``, after noting the seconds since the last lap under
+        ``phase`` (the line before the card's prints them)."""
+        now = time.perf_counter()
+        laps[phase], clock[0] = round(now - clock[0], 2), now
+        return result
+
+    a = lap("2", phase_kernel_a(sat, dev))
+    b = lap("3", phase_kernel_b(sat, dev))
     with tempfile.TemporaryDirectory() as tmp:
         s = phase_slice(sat, dev, Path(tmp), card)
-        encoder = phase_encoder(s.pop("image"))
-        phase_twins(sat, dev, Path(tmp))
-        modes = phase_emit_modes(sat, dev)
-        bins = phase_bins(sat, dev)
-        runs = phase_paths(sat, dev, Path(tmp), card)
-        phase_path_twins(sat, dev, Path(tmp))
-        shared = phase_shared_emit(sat, dev)
-        phase_sequence_twins(sat, dev)
-        seq = phase_sequence_cell(sat, dev, Path(tmp), card)
-        rk4 = phase_rk4_kernel_a(sat, dev)
-        preset_runs = phase_presets(sat, dev, Path(tmp), card)
-    renders = phase_renders(sat, dev, card)
-    rk4_renders = phase_rk4_renders(sat, dev, card)
+        encoder = lap("4", phase_encoder(s.pop("image")))
+        lap("5", phase_twins(sat, dev, Path(tmp)))
+        modes = lap("6", phase_emit_modes(sat, dev))
+        bins = lap("7", phase_bins(sat, dev))
+        runs = lap("8", phase_paths(sat, dev, Path(tmp), card))
+        lap("9", phase_path_twins(sat, dev, Path(tmp)))
+        shared = lap("10", phase_shared_emit(sat, dev))
+        lap("11", phase_sequence_twins(sat, dev))
+        seq = lap("12", phase_sequence_cell(sat, dev, Path(tmp), card))
+        rk4 = lap("14", phase_rk4_kernel_a(sat, dev))
+        preset_runs = lap("15", phase_presets(sat, dev, Path(tmp), card))
+        axes = lap("17", phase_axes_kernels(sat, dev))
+        axes_twins = lap("18", phase_axes_twins(sat, dev))
+        axes_cli = lap("20", phase_axes_cli(sat, dev, Path(tmp), card))
+    renders = lap("13", phase_renders(sat, dev, card))
+    rk4_renders = lap("16", phase_rk4_renders(sat, dev, card))
+    axes_renders = lap("19", phase_axes_renders(sat, dev, card))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders, rk4, preset_runs,
-                           rk4_renders)
+                           rk4_renders) + _axes_rows(axes, axes_twins, axes_renders, axes_cli)
     print(json.dumps({"encoder": encoder, "frame_split_s": s["split"],
-                      "rotation_encode": seq["encode"]}))
+                      "rotation_encode": seq["encode"], "phase_s": laps,
+                      "axes_renders": {k: {"iters_per_s": v["iters_per_s"], **v.get("flood", {})}
+                                       for k, v in axes_renders.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -40,7 +40,13 @@ old. Every measurement is chip_smoke.py's own, made on the imported package:
   value) (``chip_smoke._render_rates``);
 - ``ptxas``: per CUDA source of the package, its kernels' count, the most
   registers any of them uses, their spill bytes (``nvcc -Xptxas -v`` with
-  the package's own flags) and the compile's seconds.
+  the package's own flags) and the compile's seconds;
+- ``axes`` (a package with lane reseeding and the float64 path): kernel A's
+  gated float32 PACKED chunk in turns with the ungated one, its float64
+  chunk in each emission mode (gated PACKED too) at the flagship shape,
+  over 50 chunks each, and the 10^9 renders of that slice: solar-sail
+  1800x2000 with reseeding in Gas and ``--depth``, the float64 flagship
+  through KERNEL and EXACT_KERNEL (``chip_smoke._render_rates``).
 
 It prints, as the last line of its output, one JSON object of these and the
 card's name and power limit. It imports no JAX and needs one card.
@@ -57,7 +63,7 @@ import numpy as np
 import torch
 
 
-GROUPS = ("map_emit", "bin_packed", "bin_depth", "bin_exact", "render", "ptxas")
+GROUPS = ("map_emit", "bin_packed", "bin_depth", "bin_exact", "render", "ptxas", "axes")
 
 
 def _exact_bins(cs, sat, kb, binning, cfg, dev) -> dict:
@@ -102,6 +108,48 @@ def _ptxas(cuda_lib) -> dict:
                         "spill_bytes": sum(int(a) + int(b) for a, b in spills),
                         "seconds": time.perf_counter() - t0}
             print(f"ptxas {src}: {out[src]}")
+    return out
+
+
+def _axes(cs, sat, emit, dev, card) -> dict:
+    """The ``axes`` group: kernel A's gated and float64 chunks at the
+    flagship shape, then the slice's four 10^9 renders."""
+    out = {}
+    cfg = cs._flagship(sat, 10**9)
+    spec, chunk = emit.emit_spec(cfg, 0.0), sat.plan_schedule(cfg)[1]
+    pts = cs._warm_lanes(sat, dev, cfg, spec)
+    age = torch.ones(pts.shape[1], dtype=torch.int32, device=dev)
+    reseed = emit.Reseed(age, 1, 0, cfg.warmup)
+    for turn, r in (("ungated", None), ("gated", reseed), ("gated", reseed), ("ungated", None)):
+        ms = cs._time_ms(lambda: emit.map_emit(spec, pts, chunk, reseed=r), reps=50)
+        out.setdefault(f"map_emit_{turn}_ms", []).append(ms)
+    pts = pts.double()
+    B = sat.BinStrategy
+    for name, kind, shared, r in (("packed", B.PACKED, False, None),
+                                  ("depth", B.DEPTH, False, None),
+                                  ("exact", B.EXACT, False, None),
+                                  ("shared", B.PACKED, True, None),
+                                  ("shared-depth", B.DEPTH, True, None),
+                                  ("gated_packed", B.PACKED, False, reseed)):
+        fn = emit.map_emit_shared if shared else emit.map_emit
+        out[f"map_emit_f64_{name}_ms"] = cs._time_ms(
+            lambda: fn(spec, pts, chunk, kind=kind, reseed=r), reps=50)
+    for key, v in out.items():
+        print(f"{key} {pts.shape[1]} x {chunk}: {v}")
+    renders = {
+        "reseed_solar_sail": (cs._solar_sail(sat, 10**9, reseed_lanes=True), "map_emit_gated",
+                              "bin_packed"),
+        "reseed_solar_sail_depth": (cs._solar_sail(sat, 10**9, reseed_lanes=True,
+                                                   render=sat.RenderKind.DEPTH),
+                                    "map_emit_gated", "bin_depth"),
+        "f64_flagship": (cs._flagship(sat, 10**9, dtype="float64"), "map_emit_f64",
+                         "bin_packed"),
+        "f64_flagship_exact": (cs._flagship(sat, 10**9, dtype="float64",
+                                            bin_strategy=B.EXACT_KERNEL), "map_emit_f64",
+                               "bin_exact"),
+    }
+    out["render"] = {name: cs._render_rates(sat, dev, cfg, f"render {name}", card, kernels)
+                     for name, (cfg, *kernels) in renders.items()}
     return out
 
 
@@ -190,6 +238,8 @@ def main() -> int:
         from strange_attractor_tpu_torch.ops import cuda_lib
 
         out["ptxas"] = _ptxas(cuda_lib)
+    if "axes" in only:
+        out["axes"] = _axes(cs, sat, emit, dev, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps(out))

@@ -105,6 +105,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="exact16-kernel bucket-tie rule: 'value' (smallest f16 value of "
                         "the top z bucket) or 'earliest' (first-emitted point)")
     p.add_argument("--seed", type=int, default=None, help="Deterministic RNG seed")
+    p.add_argument("--reseed-lanes", dest="reseed_lanes", action="store_true",
+                   help="Resurrect trajectory lanes whose orbit escaped to infinity "
+                        "(more samples/sec for escaping coefficient sets like "
+                        "solar-sail; off replicates the reference's behavior)")
     p.add_argument("--save-state", default=None, metavar="PATH",
                    help="Checkpoint the accumulator state to PATH (.npz) after rendering")
     p.add_argument("--load-state", default=None, metavar="PATH",
@@ -208,6 +212,7 @@ def config_from_args(args):
         lanes=args.lanes,
         chunk_steps=args.chunk_steps,
         seed=args.seed,
+        reseed_lanes=args.reseed_lanes,
         render=RenderKind.DEPTH if args.depth else RenderKind.GAS,
         bin_strategy=BinStrategy(args.bin_strategy),
         exact16_ties=args.exact16_ties,

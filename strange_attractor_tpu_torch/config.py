@@ -154,8 +154,10 @@ class Config:
     Defaults match ``Config::new`` (src/lib.rs:288-308): 10^7 iterations,
     1920x1080, gas render, transparent, angle 0, silent. ``lanes``,
     ``chunk_steps``, ``warmup``, ``bin_strategy``, ``seed`` and
-    ``reseed_lanes`` mean what they mean in ``strange_attractor_tpu.Config``;
-    the compute type is always float32.
+    ``reseed_lanes`` mean what they mean in ``strange_attractor_tpu.Config``.
+    ``dtype`` is the compute type of the map, rotation, projection and color
+    transform, ``"float32"`` or ``"float64"``; the emitted depth and value,
+    and so the planes, are float32 in both.
     """
 
     attractor: Any
@@ -177,6 +179,7 @@ class Config:
     # EXACT16_KERNEL bucket ties: "value" (smallest float16 value of the top
     # z bucket) or "earliest" (first-emitted point of the top bucket)
     exact16_ties: str = "value"
+    dtype: str = "float32"
     seed: Optional[int] = None
     reseed_lanes: bool = False
 
@@ -190,6 +193,8 @@ class Config:
         if self.exact16_ties not in ("value", "earliest"):
             raise ValueError(
                 f"exact16_ties must be 'value' or 'earliest', got {self.exact16_ties!r}")
+        if self.dtype not in ("float32", "float64"):
+            raise ValueError(f"dtype must be 'float32' or 'float64', got {self.dtype!r}")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

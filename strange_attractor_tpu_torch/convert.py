@@ -44,15 +44,14 @@ def _attractor(ref):
 def config_from_reference(ref) -> Config:
     """The port's Config for a JAX-package Config ``ref``: coefficients,
     view, color transform, palette stops, brightness, sizes, schedule knobs,
-    bin strategy and ``exact16_ties``. ``kernel_section`` and
-    ``kernel_window`` are not carried: they size the TPU's sort sections
-    and apply windows, which the Hopper kernels do not have. The attractor
+    bin strategy, ``exact16_ties``, ``dtype`` and ``reseed_lanes``.
+    ``kernel_section`` and ``kernel_window`` are not carried: they size the
+    TPU's sort sections and apply windows, which the Hopper kernels do not
+    have. The attractor
     (the Sprott map or an RK4 class) is carried by class name and fields.
-    Raises NotImplementedError for what the port does not run yet (other
-    attractors and transforms, float64)."""
+    Raises NotImplementedError for what the port does not run (other
+    attractors and transforms)."""
     attractor = _attractor(ref.attractor)
-    if getattr(ref, "dtype", "float32") != "float32":
-        raise NotImplementedError(f"dtype {ref.dtype!r}: the port computes in float32")
     rot = ref.view.rotation
     view = View(
         center_camera=tuple(float(v) for v in ref.view.center_camera),
@@ -80,6 +79,7 @@ def config_from_reference(ref) -> Config:
         warmup=int(ref.warmup),
         bin_strategy=BinStrategy(ref.bin_strategy.value),
         exact16_ties=str(ref.exact16_ties),
+        dtype=str(getattr(ref, "dtype", "float32")),
         seed=ref.seed,
         reseed_lanes=bool(ref.reseed_lanes),
     )

@@ -4,17 +4,19 @@ map (delta, screen-space point, view) -> palette position
 
 Constants follow JAX's weak typing: each Python float, and each constant
 expression the JAX package writes such as ``0.46 - 1.0941``, is folded in
-float64 and rounded once to float32. The CUDA map+emit kernel writes the
-same values as ``(float)(0.46 - 1.0941)``.
+float64 and then taken in the compute dtype -- rounded once to float32, or
+exact in float64 (:func:`ops.projection.rounded`). The CUDA map+emit kernel
+writes the same values as ``(T)(0.46 - 1.0941)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from ..ops.projection import f32
+from ..ops.projection import rounded
 
 # cos/sin of 45.5 degrees = 91*pi/360 rad, the reference's constants
 # (src/lib.rs:524-536)
@@ -23,23 +25,31 @@ _SIN_45_5 = 0.7132504491541816
 
 
 def sqrt_ieee(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root on any device.
+    """Correctly rounded square root of a float32 or float64 tensor on any
+    device.
 
-    torch's CPU ``sqrt`` is not correctly rounded for float32 (it differs
-    from IEEE in about 0.6% of random inputs), while XLA's, numpy's and
-    CUDA's ``sqrtf`` are. The float64 root of a float32 value rounds to the
-    IEEE float32 root exactly, so this form agrees with all three."""
-    return torch.sqrt(x.double()).float()
+    torch's CPU ``sqrt`` is not correctly rounded, in float32 or float64
+    (it differs from IEEE in about 0.7% of random inputs of either), while
+    XLA's, numpy's and CUDA's ``sqrtf`` and ``sqrt`` are. The float64 root
+    of a float32 value rounds to the IEEE float32 root exactly, so the
+    float32 form agrees with all three; a float64 root on the CPU is
+    numpy's."""
+    if x.dtype != torch.float64:
+        return torch.sqrt(x.double()).float()
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
 
 
 def div_ieee(a: torch.Tensor, b: float) -> torch.Tensor:
-    """``a / f32(b)``, correctly rounded on every device.
+    """``a / b`` with ``b`` in ``a``'s dtype, correctly rounded on every
+    device.
 
     torch's CUDA division by a host scalar multiplies by the scalar's
     reciprocal instead, which can round differently; a divisor tensor on
     ``a``'s device keeps the IEEE quotient that XLA and the CUDA kernel
     compute."""
-    return a / torch.full((), f32(b), dtype=torch.float32, device=a.device)
+    return a / torch.full((), rounded(b, a), dtype=a.dtype, device=a.device)
 
 
 def _magnitude(dx, dy, dz):
@@ -54,7 +64,7 @@ class AdjustedVelocity:
     factor: float
 
     def xyz(self, dx, dy, dz, sx, sy, sz, view):
-        return (_magnitude(dx, dy, dz) + f32(self.offset)) * f32(self.factor)
+        return (_magnitude(dx, dy, dz) + rounded(self.offset, dx)) * rounded(self.factor, dx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,18 +78,21 @@ class PoissonSaturneTransform:
     """
 
     def xyz(self, dx, dy, dz, sx, sy, sz, view):
-        x2 = (sx + f32(view.center_camera[0])) * f32(_COS_45_5) + (
-            sz + f32(view.center_camera[1])
-        ) * f32(_SIN_45_5)
+        def c(v):
+            return rounded(v, sx)
+
+        x2 = (sx + c(view.center_camera[0])) * c(_COS_45_5) + (
+            sz + c(view.center_camera[1])
+        ) * c(_SIN_45_5)
         outside = (
-            (x2 < f32(-0.0839))
-            | (f32(10.55) * x2 + sy < f32(0.46 - 1.0941))
-            | (f32(1.0426) * x2 + sy < f32(0.179 - 0.1576))
-            | (f32(0.5139) * x2 - sy > f32(-0.04 - 0.04092))
+            (x2 < c(-0.0839))
+            | (c(10.55) * x2 + sy < c(0.46 - 1.0941))
+            | (c(1.0426) * x2 + sy < c(0.179 - 0.1576))
+            | (c(0.5139) * x2 - sy > c(-0.04 - 0.04092))
         )
-        part = torch.where(outside, 0.0, 1.0).to(torch.float32)
+        part = torch.where(outside, 0.0, 1.0).to(sx.dtype)
         color = div_ieee(part + _magnitude(dx, dy, dz), 2.0)
-        return div_ieee(color - f32(0.1), 0.9)
+        return div_ieee(color - c(0.1), 0.9)
 
 
 #: Singleton matching the reference's free function ``color_transforms::poisson_saturne``.

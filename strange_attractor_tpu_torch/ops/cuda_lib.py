@@ -29,7 +29,10 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("map_emit.cu", "map_emit_rk4.cu", "project_emit.cu", "bin_packed.cu", "bin_depth.cu",
+# the longest compiles first: kernel A's five sources instantiate 31
+# kernels per (compute type, map) pair
+SOURCES = ("map_emit_f64_cyclic.cu", "map_emit_f64.cu", "map_emit_rk4_cyclic.cu",
+           "map_emit_rk4.cu", "map_emit.cu", "project_emit.cu", "bin_packed.cu", "bin_depth.cu",
            "bin_exact.cu", "bin_exact16.cu")
 HEADERS = ("emit_common.cuh", "map_emit.cuh", "bin_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
@@ -37,21 +40,43 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 
-class EmitParams(ctypes.Structure):
-    """Mirror of ``struct EmitParams`` in ``csrc/emit_common.cuh``."""
-
-    _fields_ = [
-        ("coef", ctypes.c_float * 30),
-        ("map", ctypes.c_int), ("mc", ctypes.c_float * 3),
-        ("h", ctypes.c_float), ("hh", ctypes.c_float), ("h6", ctypes.c_float),
-        ("rot", ctypes.c_float * 9),
-        ("cos_v", ctypes.c_float), ("sin_v", ctypes.c_float),
-        ("ccx", ctypes.c_float), ("ccy", ctypes.c_float), ("ccz", ctypes.c_float),
-        ("mid", ctypes.c_float), ("wscaled", ctypes.c_float), ("half_h", ctypes.c_float),
-        ("t_offset", ctypes.c_float), ("t_factor", ctypes.c_float),
-        ("transform", ctypes.c_int),
+def _emit_fields(real) -> list:
+    """The fields of ``struct EmitParamsT<T>`` (``csrc/emit_common.cuh``)
+    with ``real`` for T."""
+    return [
+        ("coef", real * 30), ("mc", real * 3),
+        ("h", real), ("hh", real), ("h6", real),
+        ("rot", real * 9),
+        ("cos_v", real), ("sin_v", real),
+        ("ccx", real), ("ccy", real), ("ccz", real),
+        ("mid", real), ("wscaled", real), ("half_h", real),
+        ("t_offset", real), ("t_factor", real),
+        ("map", ctypes.c_int), ("transform", ctypes.c_int),
         ("width", ctypes.c_int), ("height", ctypes.c_int),
     ]
+
+
+class EmitParams(ctypes.Structure):
+    """Mirror of ``EmitParams`` (``EmitParamsT<float>``) in
+    ``csrc/emit_common.cuh``."""
+
+    _fields_ = _emit_fields(ctypes.c_float)
+
+
+class EmitParams64(ctypes.Structure):
+    """Mirror of ``EmitParams64`` (``EmitParamsT<double>``), the float64
+    compute path's launch constants."""
+
+    _fields_ = _emit_fields(ctypes.c_double)
+
+
+class ReseedArgs(ctypes.Structure):
+    """Mirror of ``struct Reseed`` in ``csrc/emit_common.cuh``: the lane
+    age pointer (0: reseeding off), the render key, the chunk index and the
+    warm-up length."""
+
+    _fields_ = [("age", ctypes.c_void_p), ("key", ctypes.c_uint64), ("chunk", ctypes.c_uint32),
+                ("warmup", ctypes.c_int)]
 
 
 _LIB: dict = {}
@@ -121,8 +146,10 @@ def library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # every entry point ends with the stream and returns cudaGetLastError()
     argtypes = {
-        "sat_map_emit": [vp, i32, i32, i32, EmitParams, vp, vp, vp, vp],
+        "sat_map_emit": [vp, i32, i32, i32, EmitParams, ReseedArgs, vp, vp, vp, vp],
+        "sat_map_emit_f64": [vp, i32, i32, i32, EmitParams64, ReseedArgs, vp, vp, vp, vp],
         "sat_project_emit": [i64, i32, EmitParams, vp, vp, vp, vp, vp, vp],
+        "sat_project_emit_f64": [i64, i32, EmitParams64, vp, vp, vp, vp, vp, vp, vp],
         "sat_bin_packed": [vp, vp, vp, vp, i64, i32],
         "sat_bin_depth": [vp, vp, vp, i64, i32],
         "sat_bin_exact": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32],
@@ -150,11 +177,12 @@ def launch(name: str, device: torch.device, *args) -> None:
     check_launch(err, name)
 
 
-def check_tensor(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor on a Hopper card."""
+def check_tensor(t: torch.Tensor, dtype, name: str) -> None:
+    """Raise unless ``t`` is a contiguous tensor on a Hopper card of
+    ``dtype`` (or of one of the dtypes of a tuple)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

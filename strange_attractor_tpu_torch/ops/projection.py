@@ -4,9 +4,10 @@ Host-side (numpy, float64) precomputation of the Euler-axis rotation matrix
 and the per-frame camera constants, plus the per-point camera rotation and
 projection on torch tensors (reference: src/lib.rs:755-786).
 
-Every device constant is the float64 host value rounded once to float32,
-the same rounding ``jnp.asarray(v, float32)`` applies, so the torch twins
-and the CUDA map+emit kernel see bit-identical operands.
+Every device constant is the float64 host value as the compute dtype sees
+it (:func:`rounded`): rounded once to float32 -- the rounding
+``jnp.asarray(v, float32)`` applies -- or exact in float64, so the torch
+twins and the CUDA map+emit kernel see bit-identical operands.
 """
 
 from __future__ import annotations
@@ -91,14 +92,21 @@ def f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def rounded(v: float, like) -> float:
+    """The host float64 ``v`` in the compute dtype of the tensor ``like``:
+    exact for float64, else rounded once to float32 (:func:`f32`). A
+    Python float meets a tensor of either dtype exactly this way."""
+    return float(v) if like.dtype.itemsize == 8 else f32(v)
+
+
 def rotate_xyz(cam: CameraParams, x, y, z):
     """screen = R @ p in component form, each row as
     ``(m0*x + m1*y) + m2*z`` -- the JAX package's term order
     (strange_attractor_tpu/ops/projection.py:112-121)."""
-    m = cam.rotation_matrix
-    sx = f32(m[0][0]) * x + f32(m[0][1]) * y + f32(m[0][2]) * z
-    sy = f32(m[1][0]) * x + f32(m[1][1]) * y + f32(m[1][2]) * z
-    sz = f32(m[2][0]) * x + f32(m[2][1]) * y + f32(m[2][2]) * z
+    m = [[rounded(v, x) for v in row] for row in cam.rotation_matrix]
+    sx = m[0][0] * x + m[0][1] * y + m[0][2] * z
+    sy = m[1][0] * x + m[1][1] * y + m[1][2] * z
+    sz = m[2][0] * x + m[2][1] * y + m[2][2] * z
     return sx, sy, sz
 
 
@@ -115,9 +123,10 @@ def shared_operands(cam: CameraParams, sx, sy, sz):
     per point (the JAX package's ``_step_fn_shared``, render.py:199-243).
     Returns (xc, zc, fj).
     """
-    xc = sx + f32(cam.center_camera[0])
-    zc = sz + f32(cam.center_camera[1])  # quirk: camera .y pairs with z
-    fj = f32(cam.height / 2.0) - (sy + f32(cam.center_camera[2])) * f32(cam.width_scaled)
+    cc = [rounded(v, sx) for v in cam.center_camera]
+    xc = sx + cc[0]
+    zc = sz + cc[1]  # quirk: camera .y pairs with z
+    fj = rounded(cam.height / 2.0, sx) - (sy + cc[2]) * rounded(cam.width_scaled, sx)
     return xc, zc, fj
 
 
@@ -129,13 +138,13 @@ def angle_half(cam: CameraParams, xc, zc, cos_v: float, sin_v: float):
         z2 = xc * sin - zc * cos
         fi = (0.5/scale - x2) * width * scale
 
-    ``cos_v``/``sin_v`` are host floats, rounded to float32 here.
+    ``cos_v``/``sin_v`` are host floats, in the compute dtype here.
     Returns (fi, z2).
     """
-    cos_t, sin_t = f32(cos_v), f32(sin_v)
+    cos_t, sin_t = rounded(cos_v, xc), rounded(sin_v, xc)
     x2 = xc * cos_t + zc * sin_t
     z2 = xc * sin_t - zc * cos_t
-    fi = (f32(cam.scale_adjusted_mid) - x2) * f32(cam.width_scaled)
+    fi = (rounded(cam.scale_adjusted_mid, xc) - x2) * rounded(cam.width_scaled, xc)
     return fi, z2
 
 
@@ -150,7 +159,7 @@ def project(cam: CameraParams, sx, sy, sz, cos_v: float, sin_v: float):
 
     The composition of :func:`shared_operands` and :func:`angle_half`, so a
     frame finished from the shared operands rounds exactly as this does.
-    ``cos_v``/``sin_v`` are host floats, rounded to float32 here.
+    ``cos_v``/``sin_v`` are host floats, in the compute dtype here.
     Returns (fi, fj, z2).
     """
     xc, zc, fj = shared_operands(cam, sx, sy, sz)

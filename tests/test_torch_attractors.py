@@ -74,7 +74,7 @@ def test_rk4_fields_and_constants_match_jax():
         h, hh, h6 = t.rk4_constants()
         assert h == np.float32(j.dt) and hh == np.float32(0.5) * np.float32(j.dt)
         assert h6 == np.float32(j.dt) / np.float32(6.0)
-    assert ta.Lorenz().constants_f32()[2] == float(np.float32(8.0 / 3.0))
+    assert ta.Lorenz().constants()[2] == float(np.float32(8.0 / 3.0))
 
 
 @pytest.mark.parametrize("b", [0.208186, 0.18])

@@ -28,6 +28,8 @@ from strange_attractor_tpu.runtime import (RenderState as JState, load_state as 
                                            save_state as jsave)
 import strange_attractor_tpu_torch as sat
 from strange_attractor_tpu_torch import cli
+from strange_attractor_tpu_torch.ops import emit
+from strange_attractor_tpu_torch.render import seed_generator, seeds_and_key
 from strange_attractor_tpu_torch.convert import (config_from_reference, state_from_numpy,
                                                  state_to_numpy)
 
@@ -193,17 +195,23 @@ def test_cuda_render_refuses_to_fall_back():
 @pytest.mark.parametrize("kw", [{"render": sat.RenderKind.DEPTH}, {"reseed_lanes": True},
                                 {"bin_strategy": sat.BinStrategy.EXACT}])
 def test_unported_options_raise(kw):
-    """reseed_lanes is still unported and raises. The Depth render and the
-    EXACT strategy, ported since, render on the CPU into their own planes."""
+    """Options once unported: the Depth render, the EXACT strategy and lane
+    reseeding, all ported since, render on the CPU into their own planes. A
+    reseeded render equals render_seeds of its generator's seeds and key,
+    bit for bit, through the kernel wrappers' CPU route and through the
+    plain twins."""
     cfg = sat.presets.poisson_saturne(width=8, height=8, iterations=64, warmup=10, seed=1,
                                       **kw)
-    if cfg.reseed_lanes:
-        with pytest.raises(NotImplementedError):
-            sat.render(cfg, device="cpu")
-        return
     state = sat.render(cfg, device="cpu")
-    assert state.strategy == cfg.resolved_bin_strategy().planes_kind() != sat.BinStrategy.PACKED
     assert sat.colorize(cfg, state).shape == (8, 8, 4)
+    if not cfg.reseed_lanes:
+        assert state.strategy == cfg.resolved_bin_strategy().planes_kind() != sat.BinStrategy.PACKED
+        return
+    assert state.strategy == sat.BinStrategy.PACKED
+    seeds, key = seeds_and_key(cfg, seed_generator(cfg))
+    for plain in (False, True):
+        got = sat.render_seeds(cfg, seeds, plain=plain, reseed_key=key)
+        assert torch.equal(got.count, state.count) and torch.equal(got.packed, state.packed)
 
 
 def test_cli_single_frame_on_cpu(tmp_path, capsys):

@@ -31,14 +31,14 @@ from strange_attractor_tpu.utils.export import convert_format
 import strange_attractor_tpu_torch as sat
 from strange_attractor_tpu_torch.convert import config_from_reference
 from strange_attractor_tpu_torch.ops import emit
-from strange_attractor_tpu_torch.render import frame_generator
+from strange_attractor_tpu_torch.render import frame_generator, seeds_and_key
 from test_torch_emit import _assert_same_floats, _lanes
 
 B = sat.BinStrategy
 ANGLES_DEG = [0.0, 90.0, 222.5]
 
 
-def _cfg(**kw):
+def _cfg(preset: str = "poisson-saturne", **kw):
     """48x27, 30,000 iterations over 64 lanes in 32-step chunks (15 chunks);
     a short warm-up keeps the eager twins quick."""
     base = dict(width=48, height=27, iterations=30_000, lanes=64, chunk_steps=32, warmup=100,
@@ -46,7 +46,7 @@ def _cfg(**kw):
     base.update(kw)
     if B(base.get("bin_strategy", B.AUTO)).planes_kind() == B.DEPTH:
         base.setdefault("render", sat.RenderKind.DEPTH)  # a z-only state tone-maps as Depth
-    return sat.presets.poisson_saturne(**base)
+    return sat.presets.by_name(preset, **base)
 
 
 def _seeds(cfg, index: int = 0) -> torch.Tensor:
@@ -219,12 +219,25 @@ def test_frame_generators():
 @pytest.mark.parametrize("engine", ["render_sequence_shared", "render_sequence_batched",
                                     "render_seeds_shared"])
 def test_reseed_lanes_raises(engine):
-    """Lane reseeding (and the shared path's emission gate) is not ported."""
-    cfg = _cfg(reseed_lanes=True)
-    args = (_seeds(cfg.replace(reseed_lanes=False)), [0.0]) if engine == "render_seeds_shared" \
-        else ([0.0],)
-    with pytest.raises(NotImplementedError):
-        getattr(sat, engine)(cfg, *args)
+    """Lane reseeding (and the shared path's emission gate), ported since,
+    renders in every sequence engine on the CPU: each frame bit-identical
+    to the plain twins' render of its seeds and render key (a shared batch:
+    its first frame's generator's)."""
+    cfg = _cfg("solar-sail", reseed_lanes=True)
+    rad = np.radians(ANGLES_DEG)
+    seeds, key = seeds_and_key(cfg, frame_generator(cfg, 0))
+    if engine == "render_seeds_shared":
+        got = sat.render_seeds_shared(cfg, seeds, rad, reseed_key=key)
+        want = sat.render_seeds_shared(cfg, seeds, rad, plain=True, reseed_key=key)
+        for g, w in zip(got, want):
+            _same_planes(g, w)
+        return
+    frames = getattr(sat, engine)(cfg, ANGLES_DEG, device="cpu")
+    for i, a in enumerate(rad):
+        if engine == "render_sequence_batched":
+            seeds, key = seeds_and_key(cfg, frame_generator(cfg, i))
+        want = sat.render_seeds(cfg, seeds, angle=float(a), plain=True, reseed_key=key)
+        np.testing.assert_array_equal(frames[i], _image(cfg, want))
 
 
 def test_wrappers_run_the_twins_on_cpu_without_launching():
