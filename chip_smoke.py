@@ -140,7 +140,30 @@ all passed):
     solar-sail renders' pixel-0 share and useful rate (in-bounds points
     off pixel (0, 0) a second);
 20. the CLI with ``-p solar-sail --reseed-lanes -i 1e9 -w 1800 -h 2000
-    -8``, launches counted, a lit image.
+    -8``, launches counted, a lit image;
+21. parallel.mesh.merge_collective of 4 shards of 1920x1080 on the card,
+    per planes kind: equal to merge_all's fold on planes as renders leave
+    them (packed values from 2^31 up, counts that wrap, z ties, both
+    zeros, the sentinel) and to the same merge on the CPU on planes with
+    NaN depths and -0.0 everywhere; each kind's merge timed;
+22. render_sharded over [cuda:0] x 4 (lanes split four ways, 8192 lanes
+    a shard at 10^9: kernel A's 16-lane ring, which phase 2 also holds to
+    its twin at 8192 x 128): the flagship at 10^9, the --depth flagship
+    and exact-kernel at 10^8, launches counted, each bit-identical to
+    merge_all of its four shard renders and timed in turns with the
+    unsharded render; 4-chunk sharded renders through the kernels and the
+    plain twins, identical planes;
+23. two torch.distributed ranks sharing the card over gloo
+    (render_distributed, flagship at 10^8): both ranks' planes equal to
+    render_sharded over two shards here, launches counted in each rank,
+    planted PACKED and EXACT planes merged over the group equal to
+    merge_all here, the PACKED canvas's all_reduce merge timed; one NCCL
+    rank the same against one shard;
+24. in the same two ranks, cli.main --coordinator: rank 0 alone writes the
+    PNG and says so;
+25. render_sequence_sharded on a 2 x 2 grid of [cuda:0] x 4, 8 frames at
+    10^7, both orbits, launches counted, equal to their compositions of
+    render_sharded over a row's devices, frames/s.
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -154,7 +177,9 @@ and rows for its gated and float64 instantiations (the latter's bound at
 the card's float64 peak, with a row per mode), kernel P rows for float64
 and gated streams. The line before it holds the encoder that ran, the 1e8
 frame's wall split, the rotation's encode time, phase 19's rates and
-pixel-0 shares, and each phase's seconds.
+pixel-0 shares, phases 21-25's merge times, sharded rates
+and launches, ranks' walls and all_reduce times and sharded sequence rates,
+and each phase's seconds.
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -176,6 +201,9 @@ import torch
 
 LANES, CHUNK = 32768, 128
 W, H = 1920, 1080
+# the sharded flagship's lane shards on the one card (phases 21-25)
+SHARDS = 4
+SHARD_LANES = LANES // SHARDS
 
 
 def _card_line() -> str:
@@ -227,13 +255,15 @@ def phase_kernel_a(sat, dev) -> dict:
     # emission: one thread per lane from 16896 lanes (the flagship shape,
     # solar-sail's escaping orbits, a ragged tail of 77 = 9 x 8 + 5 steps);
     # the 32-lane ring from 8448 lanes (128 and 77 steps: a partial last
-    # tile of 24); the 16-lane ring below (ragged lanes, a partial last
-    # block, and ragged steps at another camera angle)
+    # tile of 24); the 16-lane ring below (a lane shard of the flagship
+    # split four ways, ragged lanes, a partial last block, and ragged steps
+    # at another camera angle)
     for preset, chunks, lanes, steps, angle in (("poisson-saturne", 4, LANES, CHUNK, 0.0),
                                                 ("solar-sail", 2, LANES, CHUNK, 0.0),
                                                 ("poisson-saturne", 2, LANES, 77, 0.0),
                                                 ("poisson-saturne", 2, 16384, CHUNK, 0.3),
                                                 ("poisson-saturne", 2, 16384, 77, 0.3),
+                                                ("poisson-saturne", 2, SHARD_LANES, CHUNK, 0.0),
                                                 ("poisson-saturne", 2, 1000, 77, 0.7)):
         tag = f"{preset} {lanes} x {steps}"
         cfg = sat.presets.by_name(preset, width=W, height=H)
@@ -1771,6 +1801,337 @@ def phase_axes_cli(sat, dev, out_dir: Path, card: str) -> dict:
     return {"launches": launches, "lit": lit, "wall": wall}
 
 
+# ---------------------------------------------------------------------------
+# Several devices on the one card (phases 21-25): lanes split over a device
+# list that repeats the card, and torch.distributed ranks sharing it
+
+
+def _planted(kind: str, npix: int, rng, special: bool) -> tuple:
+    """One shard's flat planes of ``kind`` on the host: counts near 2^32,
+    packed values over the whole u32 range with ties at 2^31 and 2^31 - 1,
+    z ties across shards, both zeros (in EXACT, whose fold keeps the first
+    of equal depths), the -1 sentinel and values below it. ``special``
+    adds NaN depths of both signs, -0.0 in every float plane and steps where
+    no point won: where merge_all's fold and the JAX merge part."""
+    zvals = np.float32([-1.0, 0.0, 0.25, 0.5, 0.5, 2.0, -2.5] + [-0.0] * (kind == "exact"))
+    zbuf = np.where(rng.random(npix) < 0.5, rng.normal(0, 1, npix),
+                    zvals[rng.integers(0, len(zvals), npix)]).astype(np.float32)
+    steps = rng.random(npix).astype(np.float32)
+    if special:
+        zbuf[rng.random(npix) < 0.05] = np.float32(np.nan)
+        zbuf[rng.random(npix) < 0.05] = -np.float32(np.nan)
+        zbuf[rng.random(npix) < 0.05] = -0.0
+        steps[rng.random(npix) < 0.2] = -0.0
+    else:
+        steps[zbuf <= -1.0] = 0.0
+    count = (2**32 - rng.integers(1, 2**10, npix)).astype(np.uint32)
+    small = rng.random(npix) < 0.5
+    count[small] = rng.integers(0, 9, int(small.sum()))
+    packed = rng.integers(0, 2**32, npix, dtype=np.uint64).astype(np.uint32)
+    packed[rng.random(npix) < 0.2] = np.uint32(0x80000000)
+    packed[rng.random(npix) < 0.2] = np.uint32(0x7FFFFFFF)
+    planes = {"packed": (count, packed), "depth": (zbuf,), "exact": (count, steps, zbuf)}[kind]
+    return tuple(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+                 for a in planes)
+
+
+def _kinds() -> dict:
+    from strange_attractor_tpu_torch.config import BinStrategy
+
+    return {"packed": BinStrategy.PACKED, "depth": BinStrategy.DEPTH,
+            "exact": BinStrategy.EXACT}
+
+
+def phase_merge(sat, dev) -> dict:
+    """merge_collective of 4 shards of 1920x1080 on the card: equal to
+    merge_all's fold on planes as renders leave them (top-bit packed
+    values, counts that wrap, z ties, both zeros, the sentinel), and to the
+    same merge on the CPU (which the tests pin to the JAX merge) on planes
+    with NaN depths and -0.0 everywhere; then each kind's merge timed."""
+    from strange_attractor_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(21)
+    ms = {}
+    for kind, strategy in _kinds().items():
+        shards = [tuple(p.to(dev) for p in _planted(kind, W * H, rng, False))
+                  for _ in range(SHARDS)]
+        got = mesh.merge_collective(shards, strategy)
+        want = sat.merge_all([mesh.planes_to_state(p, strategy, (H, W)) for p in shards])
+        _same_states(f"[21] {kind} merge against merge_all",
+                     mesh.planes_to_state(got, strategy, (H, W)), want)
+        special = [_planted(kind, W * H, rng, True) for _ in range(SHARDS)]
+        got = mesh.merge_collective([tuple(p.to(dev) for p in s) for s in special], strategy)
+        for i, (g, w) in enumerate(zip(got, mesh.merge_collective(special, strategy))):
+            _check_equal(f"[21] {kind} merge of special planes, plane {i}, card against CPU",
+                         g.cpu(), w)
+        ms[kind] = _time_ms(lambda: mesh.merge_collective(shards, strategy), reps=20)
+        print(f"[21] merge_collective of {SHARDS} shards of {W}x{H} {kind} planes: equal to "
+              f"merge_all and to the CPU merge; {ms[kind]:.4f} ms")
+    return ms
+
+
+def _shard_reference(sat, dev, cfg, nshards: int, **kw):
+    """merge_all of the ``nshards`` shards' render_seeds at the shard
+    schedule with the shard generators' seeds: what render_sharded must
+    equal bit for bit."""
+    from strange_attractor_tpu_torch.parallel import mesh
+    from strange_attractor_tpu_torch.render import seeds_and_key
+
+    local = mesh.shard_config(cfg, nshards)
+    states = []
+    for s in range(nshards):
+        seeds, key = seeds_and_key(local, mesh.shard_generator(cfg, s, nshards))
+        states.append(sat.render_seeds(local, seeds.to(dev), reseed_key=key, **kw))
+    return sat.merge_all(states)
+
+
+def _timed(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_sharded(sat, dev, card: str) -> dict:
+    """The sharded renders on [cuda:0] x 4 through render_sharded, each
+    with every launch count at 0 just before it: the flagship at 10^9, the
+    --depth flagship and exact-kernel at 10^8, each bit-identical to
+    merge_all of its four shard renders; its rate in turns with the
+    unsharded render; then 4-chunk sharded renders through the kernels and
+    through the plain twins, identical planes."""
+    from strange_attractor_tpu_torch.ops.binning import u32
+    from strange_attractor_tpu_torch.parallel import mesh
+
+    B, devs = sat.BinStrategy, [dev] * SHARDS
+    paths = {"flagship": (_flagship(sat, 10**9), ("map_emit", "bin_packed")),
+             "depth": (_flagship(sat, 10**8, render=sat.RenderKind.DEPTH),
+                       ("map_emit", "bin_depth")),
+             "exact": (_flagship(sat, 10**8, bin_strategy=B.EXACT_KERNEL),
+                       ("map_emit", "bin_exact"))}
+    out = {}
+    for name, (cfg, kernels) in paths.items():
+        cfg = cfg.replace(silent=True)
+        counters = _zero_counters()
+        torch.cuda.synchronize()
+        state = mesh.render_sharded(cfg, devs)
+        torch.cuda.synchronize()
+        launches = _require_launches(f"[22] sharded {name}", counters, kernels)
+        _same_states(f"[22] sharded {name} against merge_all of its shards", state,
+                     _shard_reference(sat, dev, cfg, SHARDS))
+        lanes, chunk, nchunks = sat.plan_schedule(cfg)
+        executed = lanes * chunk * nchunks
+        unsharded = lambda: sat.render(cfg, device=dev)  # noqa: E731
+        sharded = lambda: mesh.render_sharded(cfg, devs)  # noqa: E731
+        turns = [_timed(fn) for fn in (unsharded, sharded, sharded, unsharded)]
+        rates = {"unsharded": [executed / turns[0], executed / turns[3]],
+                 "sharded": [executed / turns[1], executed / turns[2]]}
+        counters = _zero_counters()
+        unsharded()
+        flat = {k: getattr(*counters[k]) for k in kernels}
+        if state.count is not None:
+            total = int(u32(state.count).sum())
+            if not 0 < total <= executed:
+                raise AssertionError(f"[22] sharded {name}: count sum {total}")
+        print(f"[22] sharded {name} {W}x{H} {cfg.iterations:.0e} over {SHARDS} shards of "
+              f"{lanes // SHARDS} lanes x {chunk} steps x {nchunks} chunks: equal to merge_all "
+              f"of its shard renders; launches {launches} (unsharded {flat}); iters/s in turns "
+              f"unsharded {rates['unsharded'][0]:.4e}, sharded {rates['sharded'][0]:.4e}, "
+              f"{rates['sharded'][1]:.4e}, unsharded {rates['unsharded'][1]:.4e} on {card}")
+        out[name] = {"launches": launches, "unsharded_launches": flat, "iters_per_s": rates}
+    # the plain twins: four chunks of 8 steps per shard after a 16-step warm-up
+    for name, kernel, plain in (("packed", B.KERNEL, B.PACKED),
+                                ("depth", B.DEPTH_KERNEL, B.DEPTH),
+                                ("exact", B.EXACT_KERNEL, B.EXACT)):
+        cfg = _flagship(sat, LANES * 8 * 4, lanes=LANES, chunk_steps=8, warmup=16, silent=True,
+                        render=sat.RenderKind.DEPTH if name == "depth" else sat.RenderKind.GAS)
+        _same_states(f"[22] sharded {name}: kernels against plain twins",
+                     mesh.render_sharded(cfg.replace(bin_strategy=kernel), devs),
+                     mesh.render_sharded(cfg.replace(bin_strategy=plain), devs))
+    print(f"[22] sharded 4-chunk renders through the kernels and the plain twins: identical "
+          f"planes (Gas, --depth, exact)")
+    return out
+
+
+_RANK_WORKER = r'''
+import json, sys, time
+root, pid, nproc, port, out, backend = sys.argv[1:7]
+sys.path.insert(0, root)
+import numpy as np, torch
+import chip_smoke as cs
+import strange_attractor_tpu_torch as sat
+from strange_attractor_tpu_torch.parallel import distributed as dist, mesh
+from strange_attractor_tpu_torch.runtime import state_to_numpy
+
+pid, nproc = int(pid), int(nproc)
+addr = f"127.0.0.1:{port}"
+dist.initialize(addr, nproc, pid, backend=backend, device="cuda:0")
+cfg = cs._flagship(sat, 10**8).replace(silent=True)
+counters = cs._zero_counters()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+state = dist.render_distributed(cfg)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+launches = cs._require_launches("[23] render_distributed", counters, ("map_emit", "bin_packed"))
+group = torch.distributed.group.WORLD
+arrays = state_to_numpy(state)
+for kind in ("packed", "exact"):
+    mine = cs._planted(kind, cs.W * cs.H, np.random.default_rng(30 + pid), False)
+    merged = mesh.merge_collective(tuple(p.to(dist.device()) for p in mine), cs._kinds()[kind],
+                                    group)
+    arrays.update({f"{kind}_{i}": p.cpu().numpy() for i, p in enumerate(merged)})
+np.savez(f"{out}/rank{pid}.npz", **arrays)
+planes = (state.count.reshape(-1), state.packed.reshape(-1))
+mesh.merge_collective(planes, sat.BinStrategy.PACKED, group)
+merge_s = [cs._timed(lambda: mesh.merge_collective(planes, sat.BinStrategy.PACKED, group))
+           for _ in range(3)]
+result = {"rank": pid, "backend": backend, "wall": wall, "launches": launches,
+          "merge_s": merge_s}
+if nproc == 2:
+    from pathlib import Path
+    from strange_attractor_tpu_torch import cli
+
+    Path(f"{out}/cli{pid}").mkdir()
+    rc = cli.main(["--coordinator", addr, "--num-processes", "2", "--process-id", str(pid),
+                   "-i", "100000000", "-8", "--seed", "1", "-b", "-0.25",
+                   "-o", f"{out}/cli{pid}/frame"])
+    result["cli_rc"] = rc
+torch.distributed.destroy_process_group()
+print("RESULT " + json.dumps(result))
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _ranks(out: Path, nproc: int, backend: str) -> list:
+    """Run ``nproc`` ranks of _RANK_WORKER on the card, each with a time
+    limit; returns their outputs and result lines."""
+    root = str(Path(__file__).resolve().parent)
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_WORKER, root, str(i), str(nproc),
+                               port, str(out), backend], cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for i in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    results = []
+    for i, (p, text) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"[23] {backend} rank {i} of {nproc} failed "
+                                 f"({p.returncode}):\n{text[-4000:]}")
+        results.append(json.loads(lines[-1][len("RESULT "):]))
+    return list(zip(outs, results))
+
+
+def phase_distributed(sat, dev, out_dir: Path, card: str) -> dict:
+    """Two torch.distributed ranks sharing the card over gloo render the
+    flagship at 10^8 through render_distributed: both ranks hold the same
+    planes, equal to render_sharded over two shards here; the PACKED
+    canvas's all_reduce merge timed; then cli.main --coordinator in the
+    same two ranks writes one PNG, on rank 0. One NCCL rank renders the
+    same way and equals render_sharded over one shard."""
+    from strange_attractor_tpu_torch.parallel import mesh
+
+    cfg = _flagship(sat, 10**8).replace(silent=True)
+    out = {}
+    for backend, nproc in (("gloo", 2), ("nccl", 1)):
+        work = out_dir / f"ranks_{backend}"
+        work.mkdir()
+        t0 = time.perf_counter()
+        ranks = _ranks(work, nproc, backend)
+        wall = time.perf_counter() - t0
+        want = mesh.render_sharded(cfg, [dev] * nproc)
+        # each rank also merged planted planes over the group: merge_all here
+        planted = {kind: sat.merge_all(
+            [mesh.planes_to_state(tuple(p.to(dev) for p in _planted(
+                kind, W * H, np.random.default_rng(30 + i), False)), strategy, (W * H,))
+             for i in range(nproc)]) for kind, strategy in _kinds().items() if kind != "depth"}
+        for i in range(nproc):
+            with np.load(work / f"rank{i}.npz") as got:
+                for name in ("count", "packed"):
+                    _check_equal(f"[23] {backend} rank {i} {name} against render_sharded",
+                                 torch.from_numpy(got[name].view(np.int32)),
+                                 getattr(want, name).cpu())
+                for kind, fold in planted.items():
+                    for j, plane in enumerate(p for p in fold if p is not None):
+                        _check_equal(f"[23] {backend} rank {i} {kind} merge of planted planes "
+                                     f"over the group, plane {j}, against merge_all",
+                                     torch.from_numpy(got[f"{kind}_{j}"]), plane.cpu())
+        res = [r for _, r in ranks]
+        print(f"[23] {nproc} {backend} rank(s) on one card, flagship {W}x{H} 1e8: planes equal "
+              f"to render_sharded over {nproc} shard(s), planted PACKED and EXACT planes merged "
+              f"over the group equal to merge_all; render wall "
+              + ", ".join(f"{r['wall']:.4f}" for r in res) + " s; launches "
+              + ", ".join(str(r["launches"]) for r in res) + "; PACKED all_reduce merge "
+              + ", ".join("/".join(f"{1e3 * t:.2f}" for t in r["merge_s"]) for r in res)
+              + f" ms; {wall:.1f} s with the processes' start on {card}")
+        out[backend] = {"wall": [r["wall"] for r in res], "merge_s": [r["merge_s"] for r in res],
+                        "launches": [r["launches"] for r in res], "processes_s": wall}
+        if nproc == 2:
+            texts = [t for t, _ in ranks]
+            if [r.get("cli_rc") for r in res] != [0, 0]:
+                raise AssertionError(f"[24] cli ranks returned {[r.get('cli_rc') for r in res]}")
+            written = [(work / f"cli{i}" / "frame.png").exists() for i in range(2)]
+            said = ["Wrote image to" in t for t in texts]
+            if written != [True, False] or said != [True, False]:
+                raise AssertionError(f"[24] cli --coordinator: written {written}, said {said}")
+            print(f"[24] cli.main --coordinator, 2 gloo ranks on one card, 1e8 8-bit: rank 0 "
+                  f"wrote {(work / 'cli0' / 'frame.png').stat().st_size} bytes of PNG, rank 1 "
+                  f"nothing")
+    return out
+
+
+def phase_sequence_sharded(sat, dev, card: str) -> dict:
+    """render_sequence_sharded on a 2 x 2 grid of [cuda:0] x 4: 8 frames
+    at 10^7, both orbits, each with every launch count at 0 just before
+    it, equal to their compositions of render_sharded over a row's two
+    devices; then each timed again, frames/s."""
+    from strange_attractor_tpu_torch.parallel import mesh
+    from strange_attractor_tpu_torch.render import _deliver, _host_frames, frame_generator
+
+    cfg = _flagship(sat, 10**7).replace(silent=True)
+    angles, devs = list(SEQ_ANGLES), [dev] * 4
+    rad = np.radians(angles)
+    out = {}
+    for orbit, kernels in (("per-frame", ("map_emit", "bin_packed")),
+                           ("shared", ("map_emit", "project_emit", "bin_packed"))):
+        run = lambda: mesh.render_sequence_sharded(  # noqa: E731
+            cfg, angles, devs, frame_axis=2, transparent=False, eight_bit=True, orbit=orbit)
+        counters = _zero_counters()
+        frames = run()
+        launches = _require_launches(f"[25] {orbit}", counters, kernels)
+        # rows of four frames: frames 0-3 and 4-7
+        states = [mesh.render_sharded(cfg.replace(angle=float(rad[i])), devs[:2],
+                                      frame_generator(cfg, i if orbit == "per-frame"
+                                                      else i - i % 4))
+                  for i in range(len(angles))]
+        want = _host_frames(cfg, len(angles), False, True)
+        _deliver(cfg, states, want, False, True)
+        if not np.array_equal(frames, want):
+            raise AssertionError(f"[25] {orbit}: frames differ from their composition")
+        seconds = [_timed(run) for _ in range(2)]
+        lit = float((frames[0].max(axis=-1) > 0).mean())
+        print(f"[25] render_sequence_sharded {orbit}, 2 x 2 grid of one card, {len(angles)} "
+              f"frames x 1e7: equal to render_sharded compositions, lit {lit:.3f}, launches "
+              f"{launches}; " + ", ".join(f"{len(angles) / t:.4f}" for t in seconds)
+              + f" frames/s on {card}")
+        out[orbit] = {"launches": launches, "frames_per_s": [len(angles) / t for t in seconds]}
+    return out
+
+
 _SOURCE = "strange_attractor_tpu_torch/csrc/"
 _TPU = "strange_attractor_tpu/ops/kernel_binning.py:"
 # kernel row -> (source, replaces, its counter, its 10^9 render in phase 13)
@@ -1973,6 +2334,10 @@ def main() -> int:
         axes = lap("17", phase_axes_kernels(sat, dev))
         axes_twins = lap("18", phase_axes_twins(sat, dev))
         axes_cli = lap("20", phase_axes_cli(sat, dev, Path(tmp), card))
+        merge_ms = lap("21", phase_merge(sat, dev))
+        sharded = lap("22", phase_sharded(sat, dev, card))
+        ranks = lap("23-24", phase_distributed(sat, dev, Path(tmp), card))
+        seq_sharded = lap("25", phase_sequence_sharded(sat, dev, card))
     renders = lap("13", phase_renders(sat, dev, card))
     rk4_renders = lap("16", phase_rk4_renders(sat, dev, card))
     axes_renders = lap("19", phase_axes_renders(sat, dev, card))
@@ -1983,7 +2348,9 @@ def main() -> int:
     print(json.dumps({"encoder": encoder, "frame_split_s": s["split"],
                       "rotation_encode": seq["encode"], "phase_s": laps,
                       "axes_renders": {k: {"iters_per_s": v["iters_per_s"], **v.get("flood", {})}
-                                       for k, v in axes_renders.items()}}))
+                                       for k, v in axes_renders.items()},
+                      "merge_ms": merge_ms, "sharded": sharded, "ranks": ranks,
+                      "sequence_sharded": seq_sharded}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,7 @@ this checkout, for example an older commit's package unpacked with
 ``git archive <commit> strange_attractor_tpu_torch | tar -x -C DIR``; its
 kernels build under DIR's own ``build/``. ``--only`` runs the named groups
 (``map_emit``, ``bin_packed``, ``bin_depth``, ``bin_exact``, ``render``,
-``ptxas``) and skips the others. Two runs may land on two cards, so
+``ptxas``, ``axes``, ``hashes``) and skips the others. Two runs may land on two cards, so
 compare versions only inside one machine session, in turns: old, new, new,
 old. Every measurement is chip_smoke.py's own, made on the imported package:
 
@@ -46,7 +46,12 @@ old. Every measurement is chip_smoke.py's own, made on the imported package:
   chunk in each emission mode (gated PACKED too) at the flagship shape,
   over 50 chunks each, and the 10^9 renders of that slice: solar-sail
   1800x2000 with reseeding in Gas and ``--depth``, the float64 flagship
-  through KERNEL and EXACT_KERNEL (``chip_smoke._render_rates``).
+  through KERNEL and EXACT_KERNEL (``chip_smoke._render_rates``);
+- ``hashes``: a sha256 prefix of the planes of seeded 10^8 renders (the
+  flagship in Gas, ``--depth``, exact-kernel and exact16-kernel,
+  solar-sail 1800x2000, lorenz, thomas) and of the frames of a 4-frame
+  10^7 shared-orbit sequence: two package versions that render alike
+  print the same hashes.
 
 It prints, as the last line of its output, one JSON object of these and the
 card's name and power limit. It imports no JAX and needs one card.
@@ -63,7 +68,8 @@ import numpy as np
 import torch
 
 
-GROUPS = ("map_emit", "bin_packed", "bin_depth", "bin_exact", "render", "ptxas", "axes")
+GROUPS = ("map_emit", "bin_packed", "bin_depth", "bin_exact", "render", "ptxas", "axes",
+          "hashes")
 
 
 def _exact_bins(cs, sat, kb, binning, cfg, dev) -> dict:
@@ -150,6 +156,35 @@ def _axes(cs, sat, emit, dev, card) -> dict:
     }
     out["render"] = {name: cs._render_rates(sat, dev, cfg, f"render {name}", card, kernels)
                      for name, (cfg, *kernels) in renders.items()}
+    return out
+
+
+def _hashes(cs, sat, dev) -> dict:
+    """sha256 prefixes of seeded renders' planes and of a shared-orbit
+    sequence's frames (the ``hashes`` group)."""
+    import hashlib
+
+    from strange_attractor_tpu_torch.runtime import state_to_numpy
+
+    B = sat.BinStrategy
+    configs = {"flagship": cs._flagship(sat, 10**8),
+               "depth": cs._flagship(sat, 10**8, render=sat.RenderKind.DEPTH),
+               "exact": cs._flagship(sat, 10**8, bin_strategy=B.EXACT_KERNEL),
+               "exact16": cs._flagship(sat, 10**8, bin_strategy=B.EXACT16_KERNEL),
+               "solar_sail": cs._solar_sail(sat, 10**8),
+               "lorenz": sat.presets.by_name("lorenz", iterations=10**8, seed=1),
+               "thomas": sat.presets.by_name("thomas", iterations=10**8, seed=1)}
+    out = {}
+    for name, cfg in configs.items():
+        planes = state_to_numpy(sat.render(cfg.replace(silent=True), device=dev))
+        digest = hashlib.sha256()
+        for key in sorted(planes):
+            digest.update(key.encode() + planes[key].tobytes())
+        out[name] = digest.hexdigest()[:16]
+    frames = sat.render_sequence_shared(cs._flagship(sat, 10**7), [0.0, 90.0, 180.0, 270.0], 4,
+                                        transparent=False, eight_bit=True, device=dev)
+    out["sequence_shared"] = hashlib.sha256(frames.tobytes()).hexdigest()[:16]
+    print("hashes " + " ".join(f"{k} {v}" for k, v in out.items()))
     return out
 
 
@@ -240,6 +275,8 @@ def main() -> int:
         out["ptxas"] = _ptxas(cuda_lib)
     if "axes" in only:
         out["axes"] = _axes(cs, sat, emit, dev, card)
+    if "hashes" in only:
+        out["hashes"] = _hashes(cs, sat, dev)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps(out))

@@ -1,6 +1,6 @@
 """Strange-attractor renderer: the PyTorch/CUDA port of ``strange_attractor_tpu``.
 
-Renders run on one NVIDIA Hopper card through hand-written CUDA kernels
+Renders run on NVIDIA Hopper cards through hand-written CUDA kernels
 (``csrc/``): a fused map+emit chunk kernel and one bin kernel per kernel
 strategy (KERNEL, DEPTH_KERNEL, EXACT_KERNEL, EXACT16_KERNEL). Every kernel
 has a plain PyTorch twin beside it; the wrappers run the twin for CPU
@@ -22,6 +22,15 @@ tensors only. This package imports no JAX::
 ``render_sequence_batched`` draws an orbit per frame instead, and
 ``render_sequence`` yields the frames of a start/end/step rotation one by
 one.
+
+Several cards: ``render_parallel`` splits a frame's lanes over every
+visible card and merges the canvases; the ``parallel`` package holds the
+pieces: ``parallel.mesh`` (``render_sharded``, ``merge_collective``,
+``render_sequence_sharded`` over a frames x lanes grid of devices) and
+``parallel.distributed`` (``initialize``, ``render_distributed`` over
+``torch.distributed`` processes)::
+
+    frame = render_parallel(config)   # (H, W, 4) uint16, lanes over every card
 """
 
 from .config import BinStrategy, BrightnessConstants, Colors, Config, Palette, RenderKind, View
@@ -29,9 +38,9 @@ from .models import presets
 from .models.attractors import PolynomialSprott2Degree
 from .models.transforms import AdjustedVelocity, poisson_saturne_transform
 from .ops.projection import EulerAxisRotation
-from .render import (colorize, plan_schedule, render, render_frame, render_seeds,
-                     render_seeds_shared, render_sequence, render_sequence_batched,
-                     render_sequence_shared)
+from .render import (colorize, plan_schedule, render, render_frame, render_parallel,
+                     render_seeds, render_seeds_shared, render_sequence,
+                     render_sequence_batched, render_sequence_shared)
 from .runtime import RenderState, load_state, merge, merge_all, save_state
 
 __version__ = "0.1.0"
@@ -57,6 +66,7 @@ __all__ = [
     "presets",
     "render",
     "render_frame",
+    "render_parallel",
     "render_seeds",
     "render_seeds_shared",
     "render_sequence",

@@ -9,13 +9,20 @@ sequences, with the JAX package's flag names (strange_attractor_tpu/cli.py:
     python -m strange_attractor_tpu_torch -i 10000000 -8 --seed 1 -o out/rot \
         sequence -s 0 -e 360 -d 3 --frames-per-batch 60 --orbit shared
 
+    torchrun --nproc-per-node 2 -m strange_attractor_tpu_torch --distributed \
+        -i 1000000000 -8 -o out/frame
+
 Path: render -> colorize -> convert on the device -> one host copy (per
 frame, or per batch of a batched sequence) -> write, sequence frames on up
 to four encoder threads. A single frame can resume from and checkpoint its
 accumulation (``--load-state``, ``--save-state``) and write previews while
-it renders (``--preview-every``). ``completion`` and ``doctor`` exit with a "not
-yet ported" error; the JAX package (``python -m strange_attractor_tpu``)
-has them.
+it renders (``--preview-every``). Several devices: by default a frame's
+lanes split over every visible card (``parallel.mesh``; ``--single-device``
+or ``--device cuda:N`` keeps one), and ``--distributed`` (or
+``--coordinator HOST:PORT --num-processes N --process-id I``) splits them
+over processes (``parallel.distributed``), of which only the first writes
+files. ``completion`` and ``doctor`` exit with a "not yet ported" error;
+the JAX package (``python -m strange_attractor_tpu``) has them.
 """
 
 from __future__ import annotations
@@ -77,7 +84,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Use BMP format. 16-bit images are not supported.")
     p.add_argument("-o", "--file-name", dest="name", default="attractor",
                    help="Write to file name")
+    p.add_argument("--single-device", "--single-thread", dest="single_device",
+                   action="store_true", help="Run on a single device")
+    p.add_argument("--distributed", action="store_true",
+                   help="Multi-process rendering: bring up torch.distributed before "
+                        "touching devices (torchrun's env:// variables; launch the same "
+                        "command once per process). Only the primary process writes "
+                        "output files.")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="Explicit torch.distributed coordinator address (implies "
+                        "--distributed; also pass --num-processes/--process-id)")
+    p.add_argument("--num-processes", dest="num_processes", type=int, default=None,
+                   help="Total process count for --coordinator bring-up")
+    p.add_argument("--process-id", dest="process_id", type=int, default=None,
+                   help="This process's index for --coordinator bring-up")
     p.add_argument("-q", "--silent", action="store_true", help="Decrease verbosity")
+    p.add_argument("-j", "--jobs-per-thread", dest="jobs_per_thread", type=int, default=None,
+                   help="Accepted for reference-CLI compatibility; the lanes split evenly "
+                        "over the devices, so this has no effect. Use "
+                        "--lanes/--chunk-steps to tune instead. Conflicts with "
+                        "--single-device, like the reference (main.rs:297-306). "
+                        "(default: 12)")
     p.add_argument("-a", "--angle", type=float, default=0.0,
                    help="Angle to view attractor from (degrees)")
     p.add_argument("-b", "--brightness-offset", dest="brightness_offset", type=float,
@@ -118,7 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="During long renders, write a '<name>-preview' image at this "
                         "interval showing the ever-improving accumulation")
     p.add_argument("--device", default="cuda",
-                   help="torch device to render on (default: cuda; 'cpu' runs the "
+                   help="torch device to render on (default: cuda, every visible card, "
+                        "the lanes split over them; 'cuda:N' one card; 'cpu' runs the "
                         "plain PyTorch twins of the kernels)")
     sub = p.add_subparsers(dest="subcommand")
     seq = sub.add_parser(
@@ -162,6 +190,17 @@ def _validate(args, parser):
     if args.subcommand in _NOT_PORTED:
         parser.error(f"'{args.subcommand}' is not yet ported to the PyTorch package; "
                      f"run it with python -m strange_attractor_tpu")
+    # the reference's clap conflicts_with (main.rs:297-306): only an
+    # explicitly passed -j conflicts, hence the None default for 12
+    if args.jobs_per_thread is not None and args.single_device:
+        parser.error("-j/--jobs-per-thread conflicts with --single-device")
+    if args.jobs_per_thread is not None and args.jobs_per_thread < 1:
+        parser.error("-j/--jobs-per-thread must be a positive integer "
+                     "(the reference parses NonZeroUsize)")
+    if args.jobs_per_thread is None:
+        args.jobs_per_thread = 12
+    if args.coordinator and (args.num_processes is None or args.process_id is None):
+        parser.error("--coordinator requires --num-processes and --process-id")
     if args.subcommand == "sequence":
         # the reference's InvalidValue errors (main.rs:375-378)
         if args.end <= args.start:
@@ -267,30 +306,99 @@ def _strip_suffix(p: Path) -> Path:
     return p.parent / p.stem if p.suffix else p
 
 
+def render_devices(args) -> list:
+    """The devices the CLI renders over: this rank's device under
+    ``--distributed``; every visible card for ``--device cuda`` (the
+    default); else the one device ``--device`` names, or with
+    ``--single-device``. The JAX CLI renders over ``jax.devices()``."""
+    import torch
+
+    if args.distributed:
+        from .parallel import distributed as dist
+
+        return [dist.device()]
+    device = torch.device(args.device)
+    if args.single_device or device.type != "cuda" or device.index is not None:
+        return [device]
+    from .parallel.mesh import resolve_devices
+
+    return resolve_devices()
+
+
+def _is_primary(args) -> bool:
+    """Under ``--distributed`` only process 0 writes files (the processes
+    may share a filesystem; JAX CLI strange_attractor_tpu/cli.py:396-400)."""
+    if not args.distributed:
+        return True
+    from .parallel import distributed as dist
+
+    return dist.is_primary()
+
+
+def _sharded_frames(args, config, devices, angles):
+    """One-frame-at-a-time sequence frames over several devices or ranks:
+    frame ``i`` renders with :func:`render.frame_generator` ``(config, i)``
+    (the JAX CLI's ``_render_one`` over the mesh, cli.py:536-545)."""
+    from .parallel import distributed as dist
+    from .parallel.mesh import render_sharded
+    from .render import _sequence_base, colorize, frame_generator
+    from .utils.export import to_host
+
+    base = _sequence_base(config)
+    for i, angle in enumerate(angles):
+        cfg = config.replace(angle=float(np.radians(angle)))
+        gen = frame_generator(config, i, base)
+        state = dist.render_distributed(cfg, gen) if args.distributed else \
+            render_sharded(cfg, devices, gen)
+        yield to_host(colorize(cfg, state))
+
+
 def _sequence(args, config, fmt: str) -> None:
     """The ``sequence`` subcommand (strange_attractor_tpu/cli.py:432-511):
-    frames named like the reference's (utils.sequencing), or one APNG."""
+    frames named like the reference's (utils.sequencing), or one APNG.
+    Several devices (or ranks) take the frames x lanes grid with
+    ``--frames-per-batch`` and split each frame's lanes without it."""
     from .render import render_sequence, render_sequence_batched, render_sequence_shared
     from .utils.export import convert_format, write_apng, write_image
     from .utils.sequencing import frame_sequence
 
     frames = list(frame_sequence(args.start, args.end, args.step, _output_base(args)))
-    if args.frames_per_batch > 0:
+    angles = [a for a, _ in frames]
+    devices = render_devices(args)
+    sharded = args.distributed or len(devices) > 1
+    if args.frames_per_batch > 0 and sharded:
+        from .parallel.mesh import render_sequence_sharded
+
+        group = None
+        if args.distributed:
+            import torch.distributed
+
+            group = torch.distributed.group.WORLD
+        images = render_sequence_sharded(config, angles, devices, transparent=args.transparent,
+                                         eight_bit=args.eight_bit,
+                                         frames_per_batch=args.frames_per_batch,
+                                         orbit=args.orbit, group=group)
+    elif args.frames_per_batch > 0:
         engine = render_sequence_shared if args.orbit == "shared" else render_sequence_batched
-        images = engine(config, [a for a, _ in frames], args.frames_per_batch,
-                        args.transparent, args.eight_bit, device=args.device)
+        images = engine(config, angles, args.frames_per_batch, args.transparent,
+                        args.eight_bit, device=devices[0])
+    elif sharded:
+        images = _sharded_frames(args, config, devices, angles)
     else:
         images = (img for _, img in render_sequence(config, args.start, args.end, args.step,
-                                                     device=args.device))
+                                                     device=devices[0]))
+    primary = _is_primary(args)
     if args.apng:
         stack = np.stack([convert_format(im, args.transparent, args.eight_bit) for im in images])
-        out = write_apng(_output_base(args).with_suffix(".apng"), stack, fps=args.fps)
-        print(f"Wrote animation to '{out}'.")
+        if primary:
+            out = write_apng(_output_base(args).with_suffix(".apng"), stack, fps=args.fps)
+            print(f"Wrote animation to '{out}'.")
         return
 
     def write(path, image):
-        write_image(_strip_suffix(path), image, fmt=fmt, transparent=args.transparent,
-                    eight_bit=args.eight_bit, silent=config.silent)
+        if primary:
+            write_image(_strip_suffix(path), image, fmt=fmt, transparent=args.transparent,
+                        eight_bit=args.eight_bit, silent=config.silent)
 
     _write_frames(zip(images, (path for _, path in frames)), write)
 
@@ -308,19 +416,22 @@ def _deliverable(args, config, state) -> np.ndarray:
 def _render_stateful(args, config, fmt: str):
     """One frame's render, resumed from ``--load-state`` and calling back
     for ``--preview-every`` (the JAX CLI's ``_render_stateful``,
-    strange_attractor_tpu/cli.py:554-600): returns (host image, state)."""
+    strange_attractor_tpu/cli.py:554-600), over several devices or ranks
+    when there are: returns (host image, state). Every rank runs the
+    callback's merges; only the primary writes previews."""
     from .render import render
     from .runtime import load_state
     from .utils.export import write_image
 
-    state = load_state(args.load_state, device=args.device) if args.load_state else None
+    devices = render_devices(args)
+    state = load_state(args.load_state, device=devices[0]) if args.load_state else None
     on_progress = None
     if args.preview_every > 0:
-        base, last = _output_base(args), [time.perf_counter()]
+        base, last, primary = _output_base(args), [time.perf_counter()], _is_primary(args)
 
         def on_progress(done, total, partial):
             now = time.perf_counter()
-            if now - last[0] < args.preview_every:
+            if now - last[0] < args.preview_every or not primary:
                 return
             last[0] = now
             # no dot in the stem: with_suffix would take ".preview" for an
@@ -330,7 +441,16 @@ def _render_stateful(args, config, fmt: str):
                         transparent=args.transparent, eight_bit=args.eight_bit, silent=True,
                         announce=False)
 
-    state = render(config, state, on_progress=on_progress, device=args.device)
+    if args.distributed:
+        from .parallel import distributed as dist
+
+        state = dist.render_distributed(config, state=state, on_progress=on_progress)
+    elif len(devices) > 1:
+        from .parallel.mesh import render_sharded
+
+        state = render_sharded(config, devices, state=state, on_progress=on_progress)
+    else:
+        state = render(config, state, on_progress=on_progress, device=devices[0])
     return _deliverable(args, config, state), state
 
 
@@ -344,12 +464,24 @@ def main(argv=None) -> int:
     if extra and args.subcommand not in _NOT_PORTED:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     _validate(args, parser)
+    if args.distributed or args.coordinator:
+        # the process group comes up before anything touches a device
+        from .parallel import distributed as dist
+
+        args.distributed = True
+        dist.initialize(args.coordinator, args.num_processes, args.process_id,
+                        device=None if args.device == "cuda" else args.device)
+        if not dist.is_primary():
+            # every rank runs the collectives; only the primary speaks and writes
+            args.silent = True
     config = config_from_args(args)
     fmt = "pam" if args.pam else "bmp" if args.bmp else "png"
     if args.subcommand == "sequence":
         _sequence(args, config, fmt)
         return 0
     image, state = _render_stateful(args, config, fmt)
+    if not _is_primary(args):
+        return 0
     if args.save_state:
         save_state(args.save_state, state)
         if not config.silent:

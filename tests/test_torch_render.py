@@ -163,7 +163,9 @@ def test_config_from_reference_reproduces_presets(preset):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, strange_attractor_tpu_torch, strange_attractor_tpu_torch.cli, "
-            "strange_attractor_tpu_torch.convert, strange_attractor_tpu_torch.utils.native; "
+            "strange_attractor_tpu_torch.convert, strange_attractor_tpu_torch.utils.native, "
+            "strange_attractor_tpu_torch.parallel.mesh, "
+            "strange_attractor_tpu_torch.parallel.distributed; "
             "strange_attractor_tpu_torch.utils.native.get_lib(); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'strange_attractor_tpu.')) or m == 'strange_attractor_tpu']; "
