@@ -163,7 +163,21 @@ all passed):
     PNG and says so;
 25. render_sequence_sharded on a 2 x 2 grid of [cuda:0] x 4, 8 frames at
     10^7, both orbits, launches counted, equal to their compositions of
-    render_sharded over a row's devices, frames/s.
+    render_sharded over a row's devices, frames/s;
+26. the 1e8 flagship frame in a fresh process, without precompile and
+    after precompile (with the delivery warmed on its state): wall and
+    split of each; then precompile of DEPTH_KERNEL, EXACT_KERNEL,
+    EXACT16_KERNEL (both ties), reseeded solar-sail and the float64
+    flagship at 10^9, each a state of its planes and canvas on the card,
+    its kernels launched;
+27. ``python -m strange_attractor_tpu_torch doctor`` in a fresh process:
+    rc 0, ``doctor: OK``, both oracle agreements and the throughput line;
+28. a 1e8 CLI frame with ``--profile DIR``: the trace parses as JSON and
+    names kernel A's and bin_packed's CUDA kernels;
+29. the flagship at 3840x2160 and 10^9 through the CLI: the PNG decodes
+    to 3840x2160, kernel A and bin_packed launched; the same frame through
+    the package's calls for its rate, wall split and lit share, and the
+    same PNG bytes; bin_packed timed at 4K as in phase 3.
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -179,7 +193,9 @@ and gated streams. The line before it holds the encoder that ran, the 1e8
 frame's wall split, the rotation's encode time, phase 19's rates and
 pixel-0 shares, phases 21-25's merge times, sharded rates
 and launches, ranks' walls and all_reduce times and sharded sequence rates,
-and each phase's seconds.
+phases 26-29's first frames, precompile seconds, doctor's figures, the
+profiled frame and the 4K frame, and each phase's seconds. The kernel A
+and bin_packed rows carry the 4K frame's launches (``launches_4k_1e9``).
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -634,7 +650,8 @@ def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -
     lit = float((img.max(axis=-1) > 0).mean())
     if not lit > 0.10:
         raise AssertionError(f"{tag}: image nearly blank: lit fraction {lit}")
-    print(f"{tag} {W}x{H} {cfg.iterations:.0e}: {lanes} lanes x {chunk} steps x {nchunks} chunks = "
+    print(f"{tag} {cfg.width}x{cfg.height} {cfg.iterations:.0e}: {lanes} lanes x {chunk} steps x "
+          f"{nchunks} chunks = "
           f"{executed} iterations, lit {lit:.3f}, launches {launches}, "
           f"wrote {path.stat().st_size} bytes")
     print(f"{tag} render {t_render:.4f} s = {executed / t_render:.4e} iters/s; end-to-end wall "
@@ -2132,6 +2149,264 @@ def phase_sequence_sharded(sat, dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The last modules (phases 26-29): precompile, doctor, --profile, and a
+# whole 3840x2160 render through the CLI
+
+
+_FIRST_FRAME_WORKER = r"""
+import json, sys, time
+t_process = time.perf_counter()
+from pathlib import Path
+root, out, card, warm = sys.argv[1:5]
+sys.path.insert(0, root)
+import torch
+import chip_smoke as cs
+import strange_attractor_tpu_torch as sat
+
+dev = torch.device("cuda", 0)
+cfg = cs._flagship(sat, 10**8)
+result = {"warm": warm}
+if warm == "precompile":
+    t0 = time.perf_counter()
+    state = sat.precompile(cfg, device=dev)
+    result["precompile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sat.colorize_convert_fetch(cfg, state, transparent=False, eight_bit=True)
+    result["delivery_warm_s"] = time.perf_counter() - t0
+run = cs._drive(sat, dev, cfg, Path(out) / "frame", card, f"[26] first frame ({warm})",
+                ("map_emit", "bin_packed"))
+result.update(wall=run["wall"], split=run["split"], launches=run["launches"],
+              since_start=time.perf_counter() - t_process)
+print("RESULT " + json.dumps(result))
+"""
+
+
+def _subprocess(tag: str, argv: list, timeout: int = 300) -> str:
+    """Run ``argv`` from the repository's root with a time limit; return
+    its output, or raise with its end if it failed."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _first_frame(out: Path, card: str, warm: str) -> dict:
+    out.mkdir()
+    text = _subprocess(f"[26] first frame ({warm})",
+                       [sys.executable, "-c", _FIRST_FRAME_WORKER,
+                        str(Path(__file__).resolve().parent), str(out), card, warm])
+    print("\n".join(ln for ln in text.splitlines() if ln.startswith("[26]")))
+    return json.loads([ln for ln in text.splitlines() if ln.startswith("RESULT ")][-1][7:])
+
+
+def _precompiled(sat) -> dict:
+    """precompile's other paths at 10^9: (config, pinned strategy or None,
+    the kernels it must launch: kernel A's instantiation and the bin)."""
+    pin = sat.BinStrategy
+    return {
+        "depth": (_flagship(sat, 10**9, render=sat.RenderKind.DEPTH), None,
+                  ("map_emit", "bin_depth")),
+        "exact": (_flagship(sat, 10**9), pin.EXACT_KERNEL, ("map_emit", "bin_exact")),
+        "exact16_value": (_flagship(sat, 10**9), pin.EXACT16_KERNEL,
+                          ("map_emit", "bin_exact16")),
+        "exact16_earliest": (_flagship(sat, 10**9, exact16_ties="earliest"),
+                             pin.EXACT16_KERNEL, ("map_emit", "bin_exact16")),
+        "reseeded": (_reseeded(sat, 10**9), None, ("map_emit_gated", "bin_packed")),
+        "float64": (_flagship(sat, 10**9, dtype="float64"), None,
+                    ("map_emit_f64", "bin_packed")),
+    }
+
+
+def phase_precompile(sat, dev, out_dir: Path, card: str) -> dict:
+    """The 10^8 flagship frame in a fresh process, first without
+    ``precompile`` and then after ``precompile`` (and the delivery warmed
+    with its state, as its docstring says): wall and split of each; then
+    ``precompile`` of each other path at 10^9 (DEPTH_KERNEL, EXACT_KERNEL,
+    EXACT16_KERNEL in both tie modes, reseeded solar-sail, the float64
+    flagship), each with the launch counts at 0 just before it: a state of
+    the strategy's planes and the config's canvas on the card, the path's
+    kernels launched."""
+    out = {warm: _first_frame(out_dir / f"first_{warm}", card, warm)
+           for warm in ("cold", "precompile")}
+    for warm, r in out.items():
+        extra = "" if warm == "cold" else (f"; precompile {r['precompile_s']:.4f} s, delivery "
+                                           f"warmed in {r['delivery_warm_s']:.4f} s before it")
+        print(f"[26] first 1e8 frame of a fresh process ({warm}): wall {r['wall']:.4f} s "
+              f"(render {r['split']['render']:.4f}, colorize + convert "
+              f"{r['split']['colorize_convert']:.4f}, copy {r['split']['host_copy']:.4f}, PNG "
+              f"{r['split']['png']:.4f}); {r['since_start']:.3f} s from the process's start"
+              f"{extra} on {card}")
+    for name, (cfg, pin, kernels) in _precompiled(sat).items():
+        counters = _zero_counters()
+        t0 = time.perf_counter()
+        state = sat.precompile(cfg, pin, device=dev)
+        seconds = time.perf_counter() - t0
+        launches = _require_launches(f"[26] precompile {name}", counters, kernels)
+        want = (pin or cfg.resolved_bin_strategy()).planes_kind()
+        if state.strategy != want or state.shape != (cfg.height, cfg.width) \
+                or state.device != dev:
+            raise AssertionError(f"[26] precompile {name}: {state.strategy} {state.shape} on "
+                                 f"{state.device}, wanted {want} {(cfg.height, cfg.width)} on "
+                                 f"{dev}")
+        print(f"[26] precompile {name}: {state.strategy.value} planes {state.shape} on "
+              f"{state.device} in {seconds:.4f} s, launches {launches}")
+        out[name] = {"s": seconds, "launches": launches}
+    return out
+
+
+def phase_doctor(card: str) -> dict:
+    """``python -m strange_attractor_tpu_torch doctor`` in a fresh process:
+    exit code 0, ``doctor: OK``, both agreement figures and the throughput
+    line."""
+    t0 = time.perf_counter()
+    text = _subprocess("[27] doctor", [sys.executable, "-m", "strange_attractor_tpu_torch",
+                                       "doctor"])
+    seconds = time.perf_counter() - t0
+    lines = text.splitlines()
+    agree = {ln.split("(")[1].split(",")[0]: float(ln.split(": ")[1].split("%")[0])
+             for ln in lines if ln.startswith("oracle agreement (")}
+    throughput = [ln for ln in lines if ln.startswith("throughput: ")]
+    if set(agree) != {"exact-kernel", "kernel"} or not throughput \
+            or lines[-1] != "doctor: OK":
+        raise AssertionError(f"[27] doctor's report is incomplete:\n{text}")
+    for ln in lines:
+        print(f"[27] {ln}")
+    print(f"[27] doctor took {seconds:.2f} s with the process's start on {card}")
+    return {"agreement_pct": agree, "throughput": throughput[0][len("throughput: "):],
+            "s": seconds}
+
+
+def phase_profile(sat, dev, out_dir: Path, card: str) -> dict:
+    """A 10^8 CLI frame with ``--profile DIR``, the launch counts at 0 just
+    before it: the trace file parses as JSON and names kernel A's and
+    ``bin_packed``'s CUDA kernels (names, not counts: a trace may lose its
+    first kernels)."""
+    from strange_attractor_tpu_torch import cli
+
+    trace_dir = out_dir / "profile"
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    cli.main(["-i", "100000000", "-8", "--seed", "1", "-b", "-0.25", "-q", "--profile",
+              str(trace_dir), "-o", str(out_dir / "profiled")])
+    wall = time.perf_counter() - t0
+    launches = _require_launches("[28] --profile", counters, ("map_emit", "bin_packed"))
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"[28] --profile wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = {e["name"].split("(")[0] for e in events if e.get("cat") == "kernel"}
+    named = {want: sorted(k for k in kernels if want in k)
+             for want in ("map_emit", "bin_packed_kernel")}
+    if not all(named.values()):
+        raise AssertionError(f"[28] the trace names no {named}: {sorted(kernels)}")
+    print(f"[28] cli --profile, flagship 1e8: wall {wall:.4f} s with the trace, launches "
+          f"{launches}; {files[0].stat().st_size} bytes of trace, {len(events)} events, "
+          f"CUDA kernels {sorted(kernels)} on {card}")
+    return {"wall": wall, "launches": launches, "kernels": sorted(kernels)}
+
+
+def _png_size(path: Path) -> tuple:
+    """(width, height) of an 8-bit RGB PNG from its IHDR, after checking
+    that its IDAT inflates to a filter byte and a row of pixels a row."""
+    import struct
+    import zlib
+
+    data = path.read_bytes()
+    width, height, depth, color = struct.unpack(">IIBB", data[16:26])
+    idat, pos = b"", 8
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    if (depth, color) != (8, 2) or len(zlib.decompress(idat)) != height * (1 + 3 * width):
+        raise AssertionError(f"[29] {path.name}: not a whole 8-bit RGB image")
+    return width, height
+
+
+def _uhd_twins(sat, dev, cfg, row: dict) -> float:
+    """Kernel A and ``bin_packed`` held against their plain twins at the 4K
+    frame's own shapes: the seeded lanes' warm-up and two chunks through
+    ``map_emit`` and ``map_emit_plain`` (streams and lane state), and the
+    timing row's chunks binned onto two clones of its standing planes
+    through ``bin_packed`` and ``bin_chunk_packed``."""
+    from strange_attractor_tpu_torch.ops import binning, emit, kernel_binning as kb
+    from strange_attractor_tpu_torch.render import seed_generator
+
+    lanes, chunk, _ = sat.plan_schedule(cfg)
+    kind = cfg.resolved_bin_strategy().planes_kind()
+    spec = emit.emit_spec(cfg, cfg.angle)
+    pk = emit.seed_points(lanes, seed_generator(cfg)).to(dev).t().contiguous()
+    pp = pk.clone()
+    emit.map_emit(spec, pk, cfg.warmup, emit=False)
+    emit.map_emit_plain(spec, pp, cfg.warmup, emit=False)
+    err = _check_equal("[29] 4K warm-up state", pk, pp)
+    for c in range(2):
+        fk, qk = emit.map_emit(spec, pk, chunk, kind=kind)
+        fp, qp = emit.map_emit_plain(spec, pp, chunk, kind=kind)
+        err = max(err, _check_equal(f"[29] 4K chunk {c} flat", fk, fp),
+                  _check_equal(f"[29] 4K chunk {c} packed", qk, qp),
+                  _check_equal(f"[29] 4K chunk {c} state", pk, pp))
+    size, npix = f"{cfg.width}x{cfg.height}", cfg.width * cfg.height
+    print(f"[29] kernel A at {size}: warm-up + 2 x {chunk} steps at {lanes} lanes bit-identical "
+          f"(out of bounds {float((fk == npix).float().mean()):.3f}, pixel-0 share "
+          f"{float((fk == 0).float().mean()):.3f})")
+    ck, qk = (p.clone() for p in row["planes"])
+    cp, qp = (p.clone() for p in row["planes"])
+    for f, p in row["chunks"]:
+        ck, qk = kb.bin_chunk_kernel(ck, qk, f, p)
+        cp, qp = binning.bin_chunk_packed(cp, qp, f, p)
+    err = max(err, _check_equal("[29] 4K bin_packed count", ck, cp),
+              _check_equal("[29] 4K bin_packed packed", qk, qp))
+    print(f"[29] bin_packed at {size}: {len(row['chunks'])} render chunks onto the state of "
+          f"{HONEST_WARM} bit-identical, count and packed")
+    return err
+
+
+def phase_4k(sat, dev, out_dir: Path, card: str) -> dict:
+    """The flagship at 3840x2160 and 10^9 through the CLI (``-w 3840 -h
+    2160 -i 1000000000 -8``), the launch counts at 0 just before it: the
+    PNG decodes to 3840x2160 and kernel A and ``bin_packed`` launched. Then
+    the same frame through the package's calls for its split (render,
+    colorize + convert, copy, PNG) and lit share; the two PNGs are the same
+    bytes. Last, ``bin_packed`` timed at 4K as phase 3 times it at 1080p,
+    with its library yardstick, and kernel A and ``bin_packed`` held
+    against their twins at 4K (:func:`_uhd_twins`)."""
+    from strange_attractor_tpu_torch import cli
+    from strange_attractor_tpu_torch.ops import binning, kernel_binning as kb
+
+    cfg = _flagship(sat, 10**9).replace(width=3840, height=2160)
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["-w", "3840", "-h", "2160", "-i", "1000000000", "-8", "--seed", "1", "-b",
+              "-0.25", "-q", "-o", str(out_dir / "uhd_cli")])
+    wall = time.perf_counter() - t0
+    launches = _require_launches("[29] 4K cli", counters, ("map_emit", "bin_packed"))
+    size = _png_size(out_dir / "uhd_cli.png")
+    if size != (3840, 2160):
+        raise AssertionError(f"[29] the CLI's PNG is {size}")
+    run = _drive(sat, dev, cfg, out_dir / "uhd", card, "[29] 4K", ("map_emit", "bin_packed"))
+    if (out_dir / "uhd.png").read_bytes() != (out_dir / "uhd_cli.png").read_bytes():
+        raise AssertionError("[29] the CLI's 4K PNG differs from the package's")
+    lit = float((run["image"].max(axis=-1) > 0).mean())
+    rate = run["executed"] / run["t_render"]
+    print(f"[29] cli -w 3840 -h 2160 -i 1e9 -8: PNG {size[0]}x{size[1]}, lit {lit:.4f}, "
+          f"launches {launches}, wall {wall:.4f} s end to end; the package's frame "
+          f"{rate:.4e} iters/s, wall {run['wall']:.4f} s on {card}")
+    row = _honest_bin(sat, dev, cfg, kb.bin_chunk_kernel, binning.bin_chunk_packed,
+                      "[29] bin_packed 4K")
+    library = _library_bin_packed(dev, cfg.width * cfg.height, row["planes"], row["chunks"], "4K")
+    err = _uhd_twins(sat, dev, cfg, row)
+    return {"cli_wall": wall, "launches": launches, "lit": lit, "iters_per_s": rate,
+            "wall": run["wall"], "split": run["split"], "err": err,
+            "bin_packed": {**_public(row), "library_ms": sum(library.values()),
+                           "library_parts": library}}
+
+
 _SOURCE = "strange_attractor_tpu_torch/csrc/"
 _TPU = "strange_attractor_tpu/ops/kernel_binning.py:"
 # kernel row -> (source, replaces, its counter, its 10^9 render in phase 13)
@@ -2338,6 +2613,10 @@ def main() -> int:
         sharded = lap("22", phase_sharded(sat, dev, card))
         ranks = lap("23-24", phase_distributed(sat, dev, Path(tmp), card))
         seq_sharded = lap("25", phase_sequence_sharded(sat, dev, card))
+        precompiled = lap("26", phase_precompile(sat, dev, Path(tmp), card))
+        doctor = lap("27", phase_doctor(card))
+        profiled = lap("28", phase_profile(sat, dev, Path(tmp), card))
+        uhd = lap("29", phase_4k(sat, dev, Path(tmp), card))
     renders = lap("13", phase_renders(sat, dev, card))
     rk4_renders = lap("16", phase_rk4_renders(sat, dev, card))
     axes_renders = lap("19", phase_axes_renders(sat, dev, card))
@@ -2345,12 +2624,19 @@ def main() -> int:
         raise AssertionError("the port imported jax")
     kernels = _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders, rk4, preset_runs,
                            rk4_renders) + _axes_rows(axes, axes_twins, axes_renders, axes_cli)
+    for row in kernels[:2]:  # map_emit and bin_packed: the 4K frame's launches and check
+        row["launches_4k_1e9"] = uhd["launches"][row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"], uhd["err"])
+    kernels[1]["uhd"] = {k: uhd["bin_packed"][k] for k in ("ms", "ms_range", "plain_ms", "bytes",
+                                                            "bound_ms", "bound_by", "touched_px",
+                                                            "library_ms", "library_parts")}
     print(json.dumps({"encoder": encoder, "frame_split_s": s["split"],
                       "rotation_encode": seq["encode"], "phase_s": laps,
                       "axes_renders": {k: {"iters_per_s": v["iters_per_s"], **v.get("flood", {})}
                                        for k, v in axes_renders.items()},
                       "merge_ms": merge_ms, "sharded": sharded, "ranks": ranks,
-                      "sequence_sharded": seq_sharded}))
+                      "sequence_sharded": seq_sharded, "precompile": precompiled,
+                      "doctor": doctor, "profile": profiled, "uhd": uhd}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -31,22 +31,28 @@ pieces: ``parallel.mesh`` (``render_sharded``, ``merge_collective``,
 ``torch.distributed`` processes)::
 
     frame = render_parallel(config)   # (H, W, 4) uint16, lanes over every card
+
+``precompile(config)`` loads (or builds) the kernels and warms a render's
+before a timed one; ``colorize_convert_fetch`` delivers a state as the CLI
+writes it. ``oracle`` transcribes the reference's hot loop in numpy: ``python
+-m strange_attractor_tpu_torch doctor`` holds the kernels to it.
 """
 
 from .config import BinStrategy, BrightnessConstants, Colors, Config, Palette, RenderKind, View
 from .models import presets
-from .models.attractors import PolynomialSprott2Degree
+from .models.attractors import Attractor, PolynomialSprott2Degree
 from .models.transforms import AdjustedVelocity, poisson_saturne_transform
 from .ops.projection import EulerAxisRotation
-from .render import (colorize, plan_schedule, render, render_frame, render_parallel,
-                     render_seeds, render_seeds_shared, render_sequence,
-                     render_sequence_batched, render_sequence_shared)
+from .render import (colorize, colorize_convert_fetch, plan_schedule, precompile, render,
+                     render_frame, render_parallel, render_seeds, render_seeds_shared,
+                     render_sequence, render_sequence_batched, render_sequence_shared)
 from .runtime import RenderState, load_state, merge, merge_all, save_state
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AdjustedVelocity",
+    "Attractor",
     "BinStrategy",
     "BrightnessConstants",
     "Colors",
@@ -58,11 +64,13 @@ __all__ = [
     "RenderState",
     "View",
     "colorize",
+    "colorize_convert_fetch",
     "load_state",
     "merge",
     "merge_all",
     "plan_schedule",
     "poisson_saturne_transform",
+    "precompile",
     "presets",
     "render",
     "render_frame",

@@ -21,13 +21,21 @@ lanes split over every visible card (``parallel.mesh``; ``--single-device``
 or ``--device cuda:N`` keeps one), and ``--distributed`` (or
 ``--coordinator HOST:PORT --num-processes N --process-id I``) splits them
 over processes (``parallel.distributed``), of which only the first writes
-files. ``completion`` and ``doctor`` exit with a "not yet ported" error;
-the JAX package (``python -m strange_attractor_tpu``) has them.
+files. ``--profile DIR`` records a ``torch.profiler`` trace of the render
+and its delivery into DIR.
+
+    python -m strange_attractor_tpu_torch doctor            # the install, on the card
+    python -m strange_attractor_tpu_torch completion --shell zsh --install
+
+Installed (``pip install .``), the console script
+``strange-attractor-renderer-torch`` runs the same CLI; completion scripts
+are keyed on that name.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from pathlib import Path
@@ -39,7 +47,9 @@ from .models import presets
 from .models.attractors import PolynomialSprott2Degree
 from .ops.projection import EulerAxisRotation
 
-_NOT_PORTED = ("completion", "doctor")
+# the console script (pyproject.toml [project.scripts]); completion
+# scripts are keyed on it, so it must be one word
+PROG = "strange-attractor-renderer-torch"
 # encoder threads of a sequence (the reference spawns one per frame,
 # src/bin/main.rs:507-511; a bound keeps the frames in flight few)
 ENCODERS = 4
@@ -47,7 +57,7 @@ ENCODERS = 4
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="python -m strange_attractor_tpu_torch",
+        prog=PROG,
         description="Strange-attractor renderer, PyTorch/CUDA port.",
         add_help=False,
     )
@@ -140,6 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Checkpoint the accumulator state to PATH (.npz) after rendering")
     p.add_argument("--load-state", default=None, metavar="PATH",
                    help="Resume accumulation from a checkpointed state (.npz)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="Write a torch.profiler trace (Chrome trace JSON) of the render "
+                        "and its delivery to DIR")
     p.add_argument("--preview-every", dest="preview_every", type=float, default=0.0,
                    metavar="SECONDS",
                    help="During long renders, write a '<name>-preview' image at this "
@@ -177,8 +190,20 @@ def build_parser() -> argparse.ArgumentParser:
                      help="Write the whole sequence as one animated PNG ('<name>.apng') "
                           "instead of per-frame files")
     seq.add_argument("--fps", type=float, default=30.0, help="Playback rate for --apng")
-    for name in _NOT_PORTED:
-        sub.add_parser(name, add_help=False)
+    doc = sub.add_parser("doctor", help="Run environment self-checks (torch, the card, the "
+                         "kernel build, correctness vs the numpy oracle, throughput) on "
+                         "--device", add_help=False)
+    doc.add_argument("--help", action="help", help="Print help")
+    comp = sub.add_parser("completion", help="Generate a shell completion script",
+                          add_help=False)
+    comp.add_argument("--help", action="help", help="Print help")
+    comp.add_argument("--shell", choices=["bash", "zsh", "fish"], default="bash")
+    comp.add_argument("--print", dest="print_only", action="store_true", default=True,
+                      help="Print the script to stdout (default)")
+    comp.add_argument("--install", action="store_true",
+                      help="Write the script to the per-user completion dir "
+                           "(no root needed, unlike the reference's system-dir "
+                           "install)")
     # the "-8" short flag makes argparse refuse bare negative values like
     # ``-b -0.25``; "-8" itself still wins by exact option match
     p._has_negative_number_optionals.clear()  # noqa: SLF001
@@ -187,9 +212,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _validate(args, parser):
-    if args.subcommand in _NOT_PORTED:
-        parser.error(f"'{args.subcommand}' is not yet ported to the PyTorch package; "
-                     f"run it with python -m strange_attractor_tpu")
     # the reference's clap conflicts_with (main.rs:297-306): only an
     # explicitly passed -j conflicts, hence the None default for 12
     if args.jobs_per_thread is not None and args.single_device:
@@ -403,23 +425,13 @@ def _sequence(args, config, fmt: str) -> None:
     _write_frames(zip(images, (path for _, path in frames)), write)
 
 
-def _deliverable(args, config, state) -> np.ndarray:
-    """colorize -> (transparent, 8-bit) conversion on the device -> one
-    host copy."""
-    from .render import colorize
-    from .utils.export import convert_format_device, to_host
-
-    return to_host(convert_format_device(colorize(config, state), args.transparent,
-                                         args.eight_bit))
-
-
 def _render_stateful(args, config, fmt: str):
     """One frame's render, resumed from ``--load-state`` and calling back
     for ``--preview-every`` (the JAX CLI's ``_render_stateful``,
     strange_attractor_tpu/cli.py:554-600), over several devices or ranks
     when there are: returns (host image, state). Every rank runs the
     callback's merges; only the primary writes previews."""
-    from .render import render
+    from .render import colorize_convert_fetch, render
     from .runtime import load_state
     from .utils.export import write_image
 
@@ -437,7 +449,9 @@ def _render_stateful(args, config, fmt: str):
             # no dot in the stem: with_suffix would take ".preview" for an
             # extension and overwrite the final image
             write_image(base.parent / (base.name + "-preview"),
-                        _deliverable(args, config, partial), fmt=fmt,
+                        colorize_convert_fetch(config, partial,
+                                               transparent=args.transparent,
+                                               eight_bit=args.eight_bit), fmt=fmt,
                         transparent=args.transparent, eight_bit=args.eight_bit, silent=True,
                         announce=False)
 
@@ -451,19 +465,136 @@ def _render_stateful(args, config, fmt: str):
         state = render_sharded(config, devices, state=state, on_progress=on_progress)
     else:
         state = render(config, state, on_progress=on_progress, device=devices[0])
-    return _deliverable(args, config, state), state
+    return colorize_convert_fetch(config, state, transparent=args.transparent,
+                                  eight_bit=args.eight_bit), state
 
 
-def main(argv=None) -> int:
+def _completion(args, parser) -> int:
+    """The ``completion`` subcommand (strange_attractor_tpu/cli.py:348-358)."""
+    import sys
+
+    from .utils.completion import completion_script, install_completion
+
+    if args.install:
+        path = install_completion(args.shell, parser)
+        print(f"Installed {args.shell} completion to '{path}'.")
+        if args.shell == "zsh":
+            print(f"Ensure '{path.parent}' is on your fpath before compinit.")
+    else:
+        sys.stdout.write(completion_script(args.shell, parser))
+    return 0
+
+
+def _single_frame(args, config, fmt: str) -> None:
     from .runtime import save_state
     from .utils.export import write_image
 
+    image, state = _render_stateful(args, config, fmt)
+    if not _is_primary(args):
+        return
+    if args.save_state:
+        save_state(args.save_state, state)
+        if not config.silent:
+            print(f"Saved render state to '{args.save_state}'.")
+    write_image(_output_base(args), image, fmt=fmt, transparent=args.transparent,
+                eight_bit=args.eight_bit, silent=config.silent)
+
+
+def doctor(device="cuda") -> int:
+    """Environment self-check on ``device``: torch and CUDA, the card, nvcc
+    and the kernel library, the PNG encoder, agreement with the numpy
+    oracle, and throughput (the JAX CLI's ``doctor``,
+    strange_attractor_tpu/cli.py:612-672). Returns 0 when every check
+    passed, else 1.
+
+    On a CUDA device the oracle check runs the kernels: kernel A in EXACT
+    emission with the tile bin (EXACT_KERNEL), then in PACKED emission with
+    ``bin_packed`` (KERNEL), each count plane held to
+    :func:`oracle.oracle_render` of the same seeds on the visited pixels,
+    with the JAX doctor's 98% bar (a smoke threshold; the bit-exactness
+    gates are the CPU tests and ``chip_smoke.py``). Without CUDA, a CUDA
+    ``device`` is a problem: nothing runs on the CPU instead. With
+    ``device="cpu"`` the same checks run the plain twins, and the kernels
+    are not checked.
+    """
+    import torch
+
+    from .models import presets
+    from .oracle import oracle_render
+    from .render import colorize, plan_schedule, render, render_seeds, seed_generator, \
+        seeds_and_key
+    from .utils.export import to_host
+    from .utils.native import encoder
+    from .utils.profiling import RenderProfile, sync
+
+    def problem(text: str) -> int:
+        print(f"  PROBLEM: {text}")
+        print("doctor: PROBLEMS FOUND")
+        return 1
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda or 'none (CPU build)'}")
+    device = torch.device(device)
+    print(f"device: {device}")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            return problem(f"--device {device} needs a CUDA card, and torch.cuda is not "
+                           "available; pass --device cpu to check the plain twins")
+        print(f"card: {torch.cuda.get_device_name(device)}, compute capability "
+              f"{'.'.join(map(str, torch.cuda.get_device_capability(device)))}")
+        from .ops import cuda_lib
+
+        try:
+            print(f"nvcc: {cuda_lib._nvcc()}")  # noqa: SLF001
+            cuda_lib.library()
+        except (RuntimeError, OSError) as e:
+            return problem(f"the CUDA kernels did not build or load: {e}")
+        print(f"kernel library: {cuda_lib.library_path()}")
+    else:
+        print("the plain twins run on the CPU; the CUDA kernels are not checked")
+    print(f"PNG encoder: {encoder()}")
+
+    ok = True
+    for strategy in (BinStrategy.EXACT_KERNEL, BinStrategy.KERNEL):
+        cfg = presets.poisson_saturne(width=64, height=36, lanes=4, chunk_steps=16,
+                                      iterations=4 * 16 * 2, warmup=100, seed=7,
+                                      bin_strategy=strategy)
+        _, chunk, nchunks = plan_schedule(cfg)
+        seeds, _ = seeds_and_key(cfg, seed_generator(cfg))
+        count = render_seeds(cfg, seeds.to(device)).count.cpu().numpy().view(np.uint32)
+        oc, _, _ = oracle_render(cfg, seeds.numpy(), steps_per_lane=chunk * nchunks)
+        # agreement on *visited* pixels: on a mostly empty canvas the
+        # all-pixel figure mostly says that zeros equal zeros
+        visited = (count > 0) | (oc > 0)
+        eq = count == oc
+        agree = eq[visited].mean() if visited.any() else 1.0
+        print(f"oracle agreement ({strategy.value}, short-horizon exact): {agree:.4%} on "
+              f"{int(visited.sum())} visited px ({eq.mean():.4%} incl. empty)")
+        if agree < 0.98:
+            print("  PROBLEM: device arithmetic diverges from the oracle")
+            ok = False
+
+    bench = presets.poisson_saturne(iterations=2_000_000, width=192, height=108, seed=0)
+    lanes, chunk, nchunks = plan_schedule(bench)
+    sync(render(bench, device=device).count)  # warm
+    prof = RenderProfile(iterations=lanes * chunk * nchunks)
+    with prof.phase("render"):
+        state = render(bench, device=device)
+        sync(state.count)
+    with prof.phase("colorize"):
+        to_host(colorize(bench, state))
+    print(f"throughput: {prof.summary()}")
+    print("doctor: OK" if ok else "doctor: PROBLEMS FOUND")
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
     parser = build_parser()
-    # an unported subcommand's own flags must not hide the "not yet ported" error
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.subcommand not in _NOT_PORTED:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     _validate(args, parser)
+    if args.subcommand == "completion":
+        return _completion(args, parser)
+    if args.subcommand == "doctor":
+        return doctor(args.device)
     if args.distributed or args.coordinator:
         # the process group comes up before anything touches a device
         from .parallel import distributed as dist
@@ -476,18 +607,18 @@ def main(argv=None) -> int:
             args.silent = True
     config = config_from_args(args)
     fmt = "pam" if args.pam else "bmp" if args.bmp else "png"
-    if args.subcommand == "sequence":
-        _sequence(args, config, fmt)
-        return 0
-    image, state = _render_stateful(args, config, fmt)
-    if not _is_primary(args):
-        return 0
-    if args.save_state:
-        save_state(args.save_state, state)
-        if not config.silent:
-            print(f"Saved render state to '{args.save_state}'.")
-    write_image(_output_base(args), image, fmt=fmt, transparent=args.transparent,
-                eight_bit=args.eight_bit, silent=config.silent)
+    profile = contextlib.nullcontext()
+    if args.profile:
+        from .utils.profiling import trace
+
+        profile = trace(args.profile)
+    # the trace covers the render and the delivery, encoders included, and
+    # is written however the block ends
+    with profile:
+        if args.subcommand == "sequence":
+            _sequence(args, config, fmt)
+        else:
+            _single_frame(args, config, fmt)
     return 0
 
 

@@ -15,11 +15,25 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
 from ..ops.projection import f32, rounded
+
+
+@runtime_checkable
+class Attractor(Protocol):
+    """A chaotic map (reference trait: src/lib.rs:71-77; the JAX package's
+    ``Attractor``, strange_attractor_tpu/models/attractors.py:20-31). The
+    render engines and the map+emit kernel run the classes of this module;
+    the protocol names what their plain twins call."""
+
+    def step_xyz(self, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> tuple:
+        """Advance the points ``(x, y, z)`` (float32 or float64 tensors of
+        one shape) one map iteration; returns the next ``(x, y, z)``."""
+        ...
 
 
 @dataclasses.dataclass(frozen=True)

@@ -136,3 +136,50 @@ def test_png_filter_and_writers_match(dtype, channels):
     if dtype == np.uint8:
         assert texport.bmp_bytes(img) == jexport.bmp_bytes(img)
     assert texport.pam_bytes(img) == jexport.pam_bytes(img)
+
+
+def _depth_plane(seed: int, shape=(54, 96)):
+    """A DEPTH plane: normal z with the -1.0 sentinel on empty pixels and
+    both zeros."""
+    rng = np.random.default_rng(seed)
+    zbuf = rng.normal(0, 0.5, shape).astype(np.float32)
+    zbuf[rng.random(shape) < 0.3] = -1.0
+    zbuf[0, :2] = (0.0, -0.0)
+    return zbuf
+
+
+@pytest.mark.parametrize("eight_bit", [False, True])
+@pytest.mark.parametrize("transparent", [False, True])
+@pytest.mark.parametrize("kind", ["gas", "depth"])
+def test_colorize_convert_fetch_vs_jax(kind, transparent, eight_bit):
+    """The deliverable of a state carried across by convert.py equals the
+    JAX package's ``colorize_convert_fetch`` (banded, cropped, jitted) for
+    the same planes, within the log1p bound of the module docstring."""
+    from strange_attractor_tpu.config import RenderKind as JKind
+    from strange_attractor_tpu.render import colorize_convert_fetch as jfetch
+    from strange_attractor_tpu_torch.convert import state_from_numpy
+    from strange_attractor_tpu_torch.render import colorize_convert_fetch
+
+    jcfg = jpresets.poisson_saturne(transparent=transparent,
+                                    render=JKind.GAS if kind == "gas" else JKind.DEPTH)
+    if kind == "gas":
+        count, packed = _planes(21 + transparent)
+        planes = {"count": count, "packed": packed}
+    else:
+        planes = {"zbuf": _depth_plane(23 + transparent)}
+    want = jfetch(jcfg, JState(**{k: jnp.asarray(v) for k, v in planes.items()}),
+                  transparent=transparent, eight_bit=eight_bit)
+    got = colorize_convert_fetch(config_from_reference(jcfg),
+                                 state_from_numpy(planes, device="cpu"),
+                                 transparent=transparent, eight_bit=eight_bit)
+    assert isinstance(got, np.ndarray) and got.dtype == want.dtype and got.shape == want.shape
+    assert got.dtype == (np.uint8 if eight_bit else np.uint16)
+    assert got.shape == (54, 96, 4 if transparent else 3)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1, diff.max()
+    assert (diff > 0).mean() < 1e-3, (diff > 0).mean()
+    if kind == "depth":  # no log1p in the Depth tone map
+        np.testing.assert_array_equal(got, want)
+    else:
+        exact = (count == 0) | (count == count.max())
+        np.testing.assert_array_equal(got[exact], want[exact])

@@ -165,7 +165,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, strange_attractor_tpu_torch, strange_attractor_tpu_torch.cli, "
             "strange_attractor_tpu_torch.convert, strange_attractor_tpu_torch.utils.native, "
             "strange_attractor_tpu_torch.parallel.mesh, "
-            "strange_attractor_tpu_torch.parallel.distributed; "
+            "strange_attractor_tpu_torch.parallel.distributed, "
+            "strange_attractor_tpu_torch.oracle, strange_attractor_tpu_torch.utils.completion, "
+            "strange_attractor_tpu_torch.utils.profiling; "
             "strange_attractor_tpu_torch.utils.native.get_lib(); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'strange_attractor_tpu.')) or m == 'strange_attractor_tpu']; "
@@ -226,13 +228,99 @@ def test_cli_single_frame_on_cpu(tmp_path, capsys):
     assert "Wrote image" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["sequence", "-s", "3", "-e", "0"], ["completion"],
-                                  ["doctor"], ["--bmp"]])
+@pytest.mark.parametrize("argv", [["sequence", "-s", "3", "-e", "0"],
+                                  ["completion", "--shell", "tcsh"], ["doctor", "--fix"],
+                                  ["--bmp"]])
 def test_cli_unported_paths_exit_with_error(argv, capsys):
-    """``completion`` and ``doctor`` are not ported; ``sequence`` is, with
-    the JAX CLI's parse errors, and BMP needs --8-bit."""
+    """Parse errors exit with code 2, as in the JAX CLI: ``sequence``'s
+    angle check, ``completion``'s shells, ``doctor``'s lack of flags (both
+    ported since; they once exited with "not yet ported"), and BMP needs
+    --8-bit."""
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "not yet ported" in err or "--8-bit" in err or "end must be after start" in err
+    assert ("invalid choice: 'tcsh'" in err or "unrecognized arguments: --fix" in err
+            or "--8-bit" in err or "end must be after start" in err)
+
+
+_PRECOMPILE = dict(width=40, height=24, iterations=32 * 16 * 5, lanes=32, chunk_steps=16,
+                   warmup=20, seed=1)
+
+
+@pytest.mark.parametrize("kw,strategy,kind", [
+    ({}, None, sat.BinStrategy.PACKED),
+    ({"render": sat.RenderKind.DEPTH}, None, sat.BinStrategy.DEPTH),
+    ({}, sat.BinStrategy.EXACT_KERNEL, sat.BinStrategy.EXACT),
+    ({"exact16_ties": "earliest"}, sat.BinStrategy.EXACT16_KERNEL, sat.BinStrategy.EXACT),
+    ({"reseed_lanes": True}, None, sat.BinStrategy.PACKED),
+    ({"dtype": "float64"}, sat.BinStrategy.PACKED, sat.BinStrategy.PACKED),
+])
+def test_precompile_warms_two_chunks_of_the_render(kw, strategy, kind):
+    """precompile returns the config's canvas in the planes of the pinned
+    strategy (else the resolved one), on the device asked for: the planes
+    of two chunks of the config's own lanes x chunk steps."""
+    cfg = sat.presets.poisson_saturne(**_PRECOMPILE, **kw)
+    state = sat.precompile(cfg, strategy, device="cpu")
+    assert state.shape == (24, 40) and state.strategy == kind and state.device.type == "cpu"
+    pinned = cfg if strategy is None else cfg.replace(bin_strategy=strategy)
+    want = sat.render(pinned.replace(iterations=32 * 16 * 2), generator=torch.Generator()
+                      .manual_seed(0), device="cpu")
+    for got, plane in zip(state, want):
+        assert (got is None) == (plane is None)
+        assert got is None or torch.equal(got, plane)
+    if state.count is not None:
+        assert 0 < int(state.count.sum()) <= 32 * 16 * 2
+
+
+@pytest.mark.parametrize("strategy", [JBin.PACKED, JBin.EXACT])
+def test_precompile_pins_the_strategy_as_jax_does(strategy):
+    """The JAX package's pin rule: an explicit strategy wins over the
+    config's AUTO (which resolves differently off a TPU, ROADMAP C14)."""
+    from strange_attractor_tpu.render import precompile as jprecompile
+
+    jcfg = jpresets.poisson_saturne(**_PRECOMPILE)
+    jstate = jprecompile(jcfg, strategy)
+    state = sat.precompile(config_from_reference(jcfg), sat.BinStrategy(strategy.value),
+                           device="cpu")
+    assert state.strategy.value == jstate.strategy.value and state.shape == jstate.shape
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sat.precompile(config_from_reference(jcfg), device="cuda")
+
+
+def test_4k_kernel_render_equals_jax_packed_render():
+    """A whole 3840x2160 KERNEL render (262,144 points) through the twins:
+    count and packed planes equal the JAX PACKED render's from the same
+    seeds. The JAX render runs eagerly: XLA's CPU jit contracts the map
+    into FMAs (ROADMAP C5)."""
+    jcfg = jpresets.poisson_saturne(width=3840, height=2160, lanes=4096, chunk_steps=32,
+                                    iterations=4096 * 32 * 2, warmup=100, seed=4,
+                                    bin_strategy=JBin.PACKED)
+    key = seed_key(jcfg)
+    with jax.disable_jit():
+        jstate = jrender(jcfg, key=key)
+        seeds = np.array(jax.random.uniform(key, (4096, 3), dtype="float32") * 0.1)
+    cfg = config_from_reference(jcfg).replace(bin_strategy=sat.BinStrategy.KERNEL)
+    state = sat.render_seeds(cfg, torch.from_numpy(seeds))
+    assert state.shape == (2160, 3840) and state.strategy == sat.BinStrategy.PACKED
+    count = state.count.numpy().view(np.uint32)
+    want = np.asarray(jstate.count)
+    assert count.sum() == want.sum() > 0.9 * 4096 * 64
+    np.testing.assert_array_equal(count, want)
+    np.testing.assert_array_equal(state.packed.numpy().view(np.uint32),
+                                  np.asarray(jstate.packed))
+    image = sat.colorize_convert_fetch(cfg, state, transparent=False, eight_bit=True)
+    assert image.shape == (2160, 3840, 3) and image.dtype == np.uint8
+    assert (image.max(axis=-1) > 0).mean() > 0.01
+
+
+def test_public_names_cover_the_jax_package():
+    """Every public name of the JAX package is the port's too, the
+    Attractor protocol among them, which every preset's map meets."""
+    import strange_attractor_tpu as jsat
+
+    assert set(jsat.__all__) <= set(sat.__all__)
+    for name in sat.presets.PRESET_NAMES:
+        assert isinstance(sat.presets.by_name(name).attractor, sat.Attractor)
+    assert not isinstance(object(), sat.Attractor)
