@@ -177,7 +177,21 @@ all passed):
 29. the flagship at 3840x2160 and 10^9 through the CLI: the PNG decodes
     to 3840x2160, kernel A and bin_packed launched; the same frame through
     the package's calls for its rate, wall split and lit share, and the
-    same PNG bytes; bin_packed timed at 4K as in phase 3.
+    same PNG bytes; bin_packed timed at 4K as in phase 3;
+30. reference parity through tools.compare_reference: poisson-saturne at
+    10^9, brightness -0.25, seed 0, 1920x1080, 8-bit, under AUTO (KERNEL),
+    exact-kernel and exact16-kernel (ties value, then earliest), each with
+    the launch counts at 0 just before it, held to the JAX package's
+    recorded render media/poisson-saturne-tpu.png by the JAX tool's rule
+    (MAD < 0.01, correlation > 0.99); MAD, correlation, lit-support IoU,
+    iters/s and wall of each; and the thomas preset at 10^9 against
+    media/thomas.png at the preset's brightness and at offset -0.2,
+    recorded with no bound;
+31. tools.check_kernels.certify_kernels at 2^20 points over 1920x1080 and
+    over 3840x2160: KERNEL, EXACT_KERNEL, EXACT16_KERNEL (both ties) and
+    DEPTH_KERNEL bit-identical to the sequential reference on a stream
+    with a 35% pixel-0 flood, each launched once; each kernel's ms on that
+    chunk onto fresh planes.
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -194,7 +208,8 @@ frame's wall split, the rotation's encode time, phase 19's rates and
 pixel-0 shares, phases 21-25's merge times, sharded rates
 and launches, ranks' walls and all_reduce times and sharded sequence rates,
 phases 26-29's first frames, precompile seconds, doctor's figures, the
-profiled frame and the 4K frame, and each phase's seconds. The kernel A
+profiled frame and the 4K frame, phase 30's parity metrics and phase 31's
+certification seconds and chunk times, and each phase's seconds. The kernel A
 and bin_packed rows carry the 4K frame's launches (``launches_4k_1e9``).
 
 It imports no JAX. It needs one card and exits non-zero without one.
@@ -2407,6 +2422,102 @@ def phase_4k(sat, dev, out_dir: Path, card: str) -> dict:
                            "library_parts": library}}
 
 
+# phase 30's renders of the reference workload: (bin strategy, EXACT16
+# ties) and the kernels each must launch
+PARITY_RUNS = (("auto", "value"), ("exact-kernel", "value"), ("exact16-kernel", "value"),
+               ("exact16-kernel", "earliest"))
+PARITY_KERNELS = {"auto": ("map_emit", "bin_packed"), "exact-kernel": ("map_emit", "bin_exact"),
+                  "exact16-kernel": ("map_emit", "bin_exact16")}
+
+
+def _parity_run(cr, cfg, out: Path, reference: Path, dev, kernels: tuple, tag: str,
+                card: str) -> dict:
+    """One render of the reference workload through the tool
+    (``precompile``, the timed render, the 8-bit delivery, the PNG), the
+    launch counts at 0 just before it, then its metrics against
+    ``reference``."""
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = cr.render_workload(cfg, out, dev)
+    wall = time.perf_counter() - t0
+    launches = _require_launches(tag, counters, kernels)
+    metrics = cr.compare(reference, run["path"])
+    print(f"{tag}: MAD {metrics['mad']:.6f}, correlation {metrics['correlation']:.6f}, "
+          f"support IoU {metrics['support_iou']:.6f} against {reference.name}; render "
+          f"{run['iters_per_s']:.4e} iters/s ({run['seconds']:.4f} s), wall {wall:.4f} s "
+          f"(precompile + render + delivery + PNG), launches {launches} on {card}")
+    return {**metrics, "iters_per_s": run["iters_per_s"], "render_s": run["seconds"],
+            "wall_s": wall, "launches": launches}
+
+
+def phase_reference_parity(sat, dev, out_dir: Path, card: str) -> dict:
+    """The reference workload (poisson-saturne, 10^9, brightness -0.25, seed
+    0, 1920x1080, 8-bit) through ``tools.compare_reference`` under AUTO
+    (KERNEL), exact-kernel and exact16-kernel in both tie modes, each held
+    to media/poisson-saturne-tpu.png by the JAX tool's rule (MAD < 0.01,
+    correlation > 0.99); raises after all four if any failed. Then, a
+    finding with no bound, the thomas preset at 10^9 and 1920x1080 (seed
+    0) against media/thomas.png, at the preset's brightness and at offset
+    -0.2."""
+    from strange_attractor_tpu_torch.tools import compare_reference as cr
+
+    out, failed = {}, []
+    for strategy, ties in PARITY_RUNS:
+        name = strategy if strategy != "exact16-kernel" else f"{strategy}[{ties}]"
+        cfg = cr.workload(strategy, exact16_ties=ties, silent=True)
+        run = _parity_run(cr, cfg, out_dir / f"parity_{name}", cr.DEFAULT_REFERENCE, dev,
+                          PARITY_KERNELS[strategy], f"[30] {name}", card)
+        ok = cr.passes(run)
+        print(f"[30] {name}: PARITY: {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        out[name] = run
+    # media/thomas.png's settings were not recorded; its lit pixels read as
+    # a brightness offset near -0.2, where the preset's default is -0.15
+    for name, offset in (("thomas", -0.15), ("thomas_b-0.2", -0.2)):
+        thomas = sat.presets.thomas(
+            iterations=10**9, width=W, height=H, seed=0, silent=True,
+            colors=sat.Colors(brightness=sat.BrightnessConstants(offset=offset)))
+        out[name] = _parity_run(cr, thomas, out_dir / f"parity_{name}",
+                                cr.REPO / "media" / "thomas.png", dev, ("map_emit", "bin_packed"),
+                                f"[30] {name} (finding, no bound)", card)
+    if failed:
+        raise AssertionError(f"[30] PARITY: FAIL under {failed} (the JAX tool's rule: MAD < 0.01 "
+                             f"and correlation > 0.99)")
+    return out
+
+
+CERTIFY_CANVASES = ((1920, 1080), (3840, 2160))
+
+
+def phase_certify(card: str) -> dict:
+    """``tools.check_kernels.certify_kernels`` on the card at 2^20 points
+    over 1920x1080 and over 3840x2160: the four bin entry points, five
+    disciplines, each bit-identical to the sequential reference, each
+    launched once (counted); then each kernel's ms for the planted chunk
+    onto fresh planes (``chunk_ms``)."""
+    from strange_attractor_tpu_torch.tools import check_kernels as ck
+
+    want = {"bin_packed": 1, "bin_exact": 1, "bin_exact16": 2, "bin_depth": 1}
+    out = {}
+    for w, h in CERTIFY_CANVASES:
+        tag = f"[31] {w}x{h}"
+        counters = _zero_counters()
+        t0 = time.perf_counter()
+        ck.certify_kernels(1 << 20, w * h, device="cuda", log=lambda line: print(f"{tag} {line}"))
+        seconds = time.perf_counter() - t0
+        launches = {name: getattr(*counters[name]) for name in want}
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+        ms = ck.chunk_ms(1 << 20, w * h, device="cuda")
+        print(f"{tag}: certified in {seconds:.2f} s, launches {launches}; ms a 2^20-point "
+              f"chunk onto fresh planes " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + f" on {card}")
+        out[f"{w}x{h}"] = {"seconds": seconds, "launches": launches, "chunk_ms": ms}
+    return out
+
+
 _SOURCE = "strange_attractor_tpu_torch/csrc/"
 _TPU = "strange_attractor_tpu/ops/kernel_binning.py:"
 # kernel row -> (source, replaces, its counter, its 10^9 render in phase 13)
@@ -2617,6 +2728,8 @@ def main() -> int:
         doctor = lap("27", phase_doctor(card))
         profiled = lap("28", phase_profile(sat, dev, Path(tmp), card))
         uhd = lap("29", phase_4k(sat, dev, Path(tmp), card))
+        parity = lap("30", phase_reference_parity(sat, dev, Path(tmp), card))
+        certified = lap("31", phase_certify(card))
     renders = lap("13", phase_renders(sat, dev, card))
     rk4_renders = lap("16", phase_rk4_renders(sat, dev, card))
     axes_renders = lap("19", phase_axes_renders(sat, dev, card))
@@ -2636,7 +2749,8 @@ def main() -> int:
                                        for k, v in axes_renders.items()},
                       "merge_ms": merge_ms, "sharded": sharded, "ranks": ranks,
                       "sequence_sharded": seq_sharded, "precompile": precompiled,
-                      "doctor": doctor, "profile": profiled, "uhd": uhd}))
+                      "doctor": doctor, "profile": profiled, "uhd": uhd, "parity": parity,
+                      "certify": certified}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -181,7 +181,8 @@ def _hashes(cs, sat, dev) -> dict:
         for key in sorted(planes):
             digest.update(key.encode() + planes[key].tobytes())
         out[name] = digest.hexdigest()[:16]
-    frames = sat.render_sequence_shared(cs._flagship(sat, 10**7), [0.0, 90.0, 180.0, 270.0], 4,
+    frames = sat.render_sequence_shared(cs._flagship(sat, 10**7), [0.0, 90.0, 180.0, 270.0],
+                                        frames_per_batch=4,
                                         transparent=False, eight_bit=True, device=dev)
     out["sequence_shared"] = hashlib.sha256(frames.tobytes()).hexdigest()[:16]
     print("hashes " + " ".join(f"{k} {v}" for k, v in out.items()))

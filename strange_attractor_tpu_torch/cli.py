@@ -402,8 +402,9 @@ def _sequence(args, config, fmt: str) -> None:
                                          orbit=args.orbit, group=group)
     elif args.frames_per_batch > 0:
         engine = render_sequence_shared if args.orbit == "shared" else render_sequence_batched
-        images = engine(config, angles, args.frames_per_batch, args.transparent,
-                        args.eight_bit, device=devices[0])
+        images = engine(config, angles, frames_per_batch=args.frames_per_batch,
+                        transparent=args.transparent, eight_bit=args.eight_bit,
+                        device=devices[0])
     elif sharded:
         images = _sharded_frames(args, config, devices, angles)
     else:

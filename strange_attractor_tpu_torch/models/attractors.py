@@ -36,8 +36,25 @@ class Attractor(Protocol):
         ...
 
 
+class _PointSteps:
+    """The JAX package's ``step`` and ``step_numpy`` of a map, on (..., 3)
+    points, from the class's ``step_xyz`` and the numpy oracle."""
+
+    def step(self, p: torch.Tensor) -> torch.Tensor:
+        """Advance the points ``p`` (..., 3), a float32 or float64 tensor,
+        one map iteration (:meth:`step_xyz`)."""
+        return torch.stack(self.step_xyz(p[..., 0], p[..., 1], p[..., 2]), dim=-1)
+
+    def step_numpy(self, p: np.ndarray) -> np.ndarray:
+        """Numpy twin of :meth:`step` for the CPU oracle: the oracle's own
+        transcription of the map (:func:`oracle.step`)."""
+        from ..oracle import step
+
+        return np.stack(step(self, p[..., 0], p[..., 1], p[..., 2]), axis=-1)
+
+
 @dataclasses.dataclass(frozen=True)
-class PolynomialSprott2Degree:
+class PolynomialSprott2Degree(_PointSteps):
     """Second-degree polynomial Sprott map (reference: src/lib.rs:575-621).
 
     The next point is three dot products of the monomial vector
@@ -73,7 +90,7 @@ class PolynomialSprott2Degree:
         return dot(self.x), dot(self.y), dot(self.z)
 
 
-class _RK4Ode:
+class _RK4Ode(_PointSteps):
     """One fixed-step RK4 step of size ``dt`` over the component-form
     derivative ``_deriv_xyz`` (the JAX package's ``_RK4Ode._rk4_xyz``,
     strange_attractor_tpu/models/attractors.py:113-125), in its order of

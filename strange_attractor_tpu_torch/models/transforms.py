@@ -56,6 +56,17 @@ def _magnitude(dx, dy, dz):
     return sqrt_ieee(dx * dx + dy * dy + dz * dz)
 
 
+def _numpy(transform, delta: np.ndarray, screen: np.ndarray, view) -> np.ndarray:
+    """The JAX package's ``numpy`` of a transform on (..., 3) arrays: the
+    numpy oracle's own transcription (:func:`oracle.color_value`)."""
+    from ..oracle import color_value
+
+    def parts(v):
+        return v[..., 0], v[..., 1], v[..., 2]
+
+    return color_value(transform, parts(delta), parts(screen), view)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdjustedVelocity:
     """``(|delta| + offset) * factor`` (reference: src/lib.rs:506-516)."""
@@ -65,6 +76,8 @@ class AdjustedVelocity:
 
     def xyz(self, dx, dy, dz, sx, sy, sz, view):
         return (_magnitude(dx, dy, dz) + rounded(self.offset, dx)) * rounded(self.factor, dx)
+
+    numpy = _numpy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +106,8 @@ class PoissonSaturneTransform:
         part = torch.where(outside, 0.0, 1.0).to(sx.dtype)
         color = div_ieee(part + _magnitude(dx, dy, dz), 2.0)
         return div_ieee(color - c(0.1), 0.9)
+
+    numpy = _numpy
 
 
 #: Singleton matching the reference's free function ``color_transforms::poisson_saturne``.

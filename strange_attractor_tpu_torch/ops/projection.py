@@ -99,6 +99,17 @@ def rounded(v: float, like) -> float:
     return float(v) if like.dtype.itemsize == 8 else f32(v)
 
 
+def rotate_point(cam: CameraParams, p, jnp=None):
+    """screen = R @ p of points ``p`` (..., 3), a torch tensor or a numpy
+    array of float32 or float64 (reference: src/lib.rs:773, 208-215);
+    returns (sx, sy, sz), each (...,), as :func:`rotate_xyz` computes them.
+    ``jnp`` is accepted for the JAX package's signature
+    (strange_attractor_tpu/ops/projection.py:102) and ignored: the
+    operands' own type picks the arithmetic."""
+    del jnp
+    return rotate_xyz(cam, p[..., 0], p[..., 1], p[..., 2])
+
+
 def rotate_xyz(cam: CameraParams, x, y, z):
     """screen = R @ p in component form, each row as
     ``(m0*x + m1*y) + m2*z`` -- the JAX package's term order

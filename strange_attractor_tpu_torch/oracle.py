@@ -11,7 +11,9 @@ transforms' ``numpy`` and ``Palette.interpolate_numpy``, with two
 exceptions taken from the port: Thomas' sine is the port's own
 (:func:`models.attractors.sin_f32` and ``sin_f64``, transcribed here op for
 op from their constants: ``np.sin`` rounds differently), and the camera
-constants come from :func:`ops.projection.camera_params`. Every constant is
+constants come from :func:`ops.projection.camera_params`. The model classes'
+``step_numpy`` and the transforms' ``numpy`` are these transcriptions
+(:func:`step`, :func:`color_value`) on (..., 3) arrays. Every constant is
 taken in the compute dtype explicitly, so numpy's scalar promotion rules
 (which differ between numpy 1 and 2) cannot widen a step.
 
@@ -124,8 +126,9 @@ def _magnitude(dx, dy, dz):
     return np.sqrt(dx * dx + dy * dy + dz * dz)
 
 
-def _color_value(transform, delta: tuple, screen: tuple, view) -> np.ndarray:
-    """The palette position of each point (src/lib.rs:498-559)."""
+def color_value(transform, delta: tuple, screen: tuple, view) -> np.ndarray:
+    """The palette position of each point (src/lib.rs:498-559) from the
+    components of ``delta`` and ``screen`` as numpy arrays of one dtype."""
     dt = delta[0].dtype.type
     if isinstance(transform, AdjustedVelocity):
         return (_magnitude(*delta) + dt(transform.offset)) * dt(transform.factor)
@@ -190,7 +193,7 @@ def _lanes_points(config: Config, seeds: np.ndarray, steps: int, dtype) -> dict:
             # pixel (0, 0) (escaped orbits)
             ok = ~((i >= width) | (j >= height) | (i < dt(0.0)) | (j < dt(0.0)))
             fi[:, k], fj[:, k], z2a[:, k], inb[:, k] = i, j, z2, ok
-            val[:, k] = _color_value(config.color_transform,
+            val[:, k] = color_value(config.color_transform,
                                      (x - prev[0], y - prev[1], z - prev[2]), s, config.view)
             ii = np.where(ok & ~np.isnan(i), i, dt(0.0)).astype(np.int64)
             jj = np.where(ok & ~np.isnan(j), j, dt(0.0)).astype(np.int64)

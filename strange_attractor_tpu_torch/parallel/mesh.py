@@ -42,8 +42,8 @@ import torch
 from ..config import BinStrategy, Config
 from ..ops.binning import _inv_mono_u32, _mono_u32, canonical_zero, to_u32_bits, u32
 from ..render import (PROGRESS_EVERY, Stepper, _auto_frames_per_batch, _check_state, _deliver,
-                      _host_frames, _planes_to_state, _progressive_nonce, _same_device,
-                      _sequence_base, _state_to_planes, _strategy, frame_generator,
+                      _draw_base, _host_frames, _planes_to_state, _progressive_nonce,
+                      _same_device, _sequence_base, _state_to_planes, _strategy, frame_generator,
                       plan_schedule, render_seeds_shared, render_sequence_batched,
                       seeds_and_key)
 from ..runtime import RenderState, merge, resolve_device
@@ -103,10 +103,6 @@ def shard_generator(config: Config, shard: int, nshards: int,
         words = [int(base) & (2**64 - 1), int(nshards), int(shard)]
         g.manual_seed(int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]))
     return g
-
-
-def _draw_base(generator: torch.Generator) -> int:
-    return int(torch.randint(0, 1 << 62, (1,), generator=generator))
 
 
 def _shard_base(config: Config, generator: Optional[torch.Generator],
@@ -332,8 +328,9 @@ def render_sequence_sharded(config: Config, angles_deg: Sequence[float], devices
     its row's devices and its canvas is merged across them. With
     ``orbit="per-frame"`` frame ``i`` is :func:`render_sharded` over the
     row's devices with :func:`render.frame_generator` ``(config, i, base)``
-    (``base``: ``config.seed``, or the ``generator``'s first draw, or one
-    OS-entropy draw for the sequence) at its angle; with ``orbit="shared"``
+    (``base``: the ``generator``'s first draw when one is given, else
+    ``config.seed``, else one OS-entropy draw for the sequence) at its
+    angle; with ``orbit="shared"``
     every frame of a row's slice bins one orbit through
     :func:`render.render_seeds_shared`, seeded by the slice's first frame's
     generator, and equals that :func:`render_sharded` at its angle.
@@ -375,7 +372,7 @@ def render_sequence_sharded(config: Config, angles_deg: Sequence[float], devices
     group_len = full_len if per_batch >= full_len else per_batch
     if orbit not in ("per-frame", "shared"):
         raise ValueError(f"orbit must be 'per-frame' or 'shared', got {orbit!r}")
-    base = _sequence_base(config) if generator is None else _draw_base(generator)
+    base = _sequence_base(config, generator)
     rad = np.radians(angles)
     out = _host_frames(config, nang, transparent, eight_bit)
     per_row = group_len // frame_axis

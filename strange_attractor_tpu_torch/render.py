@@ -102,10 +102,19 @@ def seed_generator(config: Config, nonce: Optional[int] = None) -> torch.Generat
     return g
 
 
-def _sequence_base(config: Config) -> int:
-    """The base a sequence folds its frame indices into: ``config.seed``,
-    or for an unseeded config one OS-entropy draw that the whole sequence
-    shares (the JAX package's ``seed_key``, render.py:60-67)."""
+def _draw_base(generator: torch.Generator) -> int:
+    """A base of :func:`frame_generator` drawn from ``generator``."""
+    return int(torch.randint(0, 1 << 62, (1,), generator=generator))
+
+
+def _sequence_base(config: Config, generator: Optional[torch.Generator] = None) -> int:
+    """The base a sequence folds its frame indices into: the
+    ``generator``'s first draw when one is given (as a JAX ``key``
+    overrides ``config.seed``), else ``config.seed``, else for an unseeded
+    config one OS-entropy draw that the whole sequence shares (the JAX
+    package's ``seed_key``, render.py:60-67)."""
+    if generator is not None:
+        return _draw_base(generator)
     if config.seed is not None:
         return int(config.seed)
     return np.random.SeedSequence().entropy % (1 << 63)
@@ -480,15 +489,19 @@ def render_parallel(config: Config, generator: Optional[torch.Generator] = None,
     return to_host(colorize(config, render_sharded(config, devices, generator)))
 
 
-def render_sequence(config: Config, start_deg: float, end_deg: float, step_deg: float, *,
+def render_sequence(config: Config, start_deg: float, end_deg: float, step_deg: float,
+                    generator: Optional[torch.Generator] = None, *,
                     device="cuda") -> Iterator[tuple[float, np.ndarray]]:
     """Frames of a camera rotation (the reference's ``sequence``
     subcommand, src/bin/main.rs:327-367, angles by its AngleIter), one
     :func:`render_frame` each: yields ``(angle_degrees, image)``. Frame
-    ``i`` draws its seeds from :func:`frame_generator` ``(config, i)``, so a
-    seeded sequence is frame-identical to :func:`render_sequence_batched`
-    (the JAX package's ``render_sequence``, render.py:1461-1488)."""
-    base = _sequence_base(config)
+    ``i`` draws its seeds from :func:`frame_generator` ``(config, i,
+    base)``, ``base`` the ``generator``'s first draw if one is given (it
+    stands where the JAX ``key`` does and overrides ``config.seed`` as
+    that does), else ``config.seed``; so a sequence is frame-identical to
+    :func:`render_sequence_batched` with the same generator or seed (the
+    JAX package's ``render_sequence``, render.py:1461-1488)."""
+    base = _sequence_base(config, generator)
     for i, angle_deg in enumerate(angle_iter(start_deg, end_deg, step_deg)):
         gen = frame_generator(config, i, base)
         yield angle_deg, render_frame(config, gen, angle=float(np.radians(angle_deg)),
@@ -546,15 +559,19 @@ def _sequence_setup(config: Config, angles_deg, frames_per_batch: Optional[int],
     return angles, frames_per_batch, resolve_device(device)
 
 
-def render_sequence_batched(config: Config, angles_deg, frames_per_batch: Optional[int] = None,
-                            transparent: bool = True, eight_bit: bool = False, *,
-                            device="cuda") -> np.ndarray:
+def render_sequence_batched(config: Config, angles_deg,
+                            generator: Optional[torch.Generator] = None,
+                            frames_per_batch: Optional[int] = None, transparent: bool = True,
+                            eight_bit: bool = False, *, device="cuda") -> np.ndarray:
     """Render a camera rotation with an orbit of its own per frame: frame
-    ``i`` is :func:`render` with :func:`frame_generator` ``(config, i)`` at
-    ``angles_deg[i]`` (degrees), as the reference draws fresh samples per
-    frame. Returns (F, H, W, C) frames in the order of ``angles_deg``,
-    converted on the device by (``transparent``, ``eight_bit``) (the JAX
-    defaults keep the (F, H, W, 4) uint16 contract).
+    ``i`` is :func:`render` with :func:`frame_generator` ``(config, i,
+    base)`` at ``angles_deg[i]`` (degrees), as the reference draws fresh
+    samples per frame; ``base`` is the ``generator``'s first draw if one is
+    given (the JAX ``key``'s place, overriding ``config.seed``), else
+    ``config.seed``. Returns (F, H, W, C) frames in the order of
+    ``angles_deg``, converted on the device by (``transparent``,
+    ``eight_bit``) (the JAX defaults keep the (F, H, W, 4) uint16
+    contract).
 
     The counterpart of the JAX package's ``render_sequence_batched``
     (render.py:1176-1278), which vmaps a batch's frames into one program.
@@ -571,7 +588,7 @@ def render_sequence_batched(config: Config, angles_deg, frames_per_batch: Option
                  eight_bit)
         out[:] = blank
         return out
-    base = _sequence_base(config)
+    base = _sequence_base(config, generator)
     rad = np.radians(angles)
     for lo in range(0, len(angles), per_batch):
         hi = min(lo + per_batch, len(angles))
@@ -619,14 +636,16 @@ def render_seeds_shared(config: Config, seeds: torch.Tensor, angles,
     return [_planes_to_state(p, kind, shape) for p in frames]
 
 
-def render_sequence_shared(config: Config, angles_deg, frames_per_batch: Optional[int] = None,
-                           transparent: bool = True, eight_bit: bool = False, *,
-                           device="cuda") -> np.ndarray:
+def render_sequence_shared(config: Config, angles_deg,
+                           generator: Optional[torch.Generator] = None,
+                           frames_per_batch: Optional[int] = None, transparent: bool = True,
+                           eight_bit: bool = False, *, device="cuda") -> np.ndarray:
     """Render a camera rotation from one shared orbit per batch of frames.
 
-    The contract of :func:`render_sequence_batched`, but the frames of a
-    batch all bin the orbit seeded by the batch's first frame's generator
-    (:func:`frame_generator` ``(config, lo)``): each frame is
+    The contract of :func:`render_sequence_batched`, ``generator``
+    included, but the frames of a batch all bin the orbit seeded by the
+    batch's first frame's generator
+    (:func:`frame_generator` ``(config, lo, base)``): each frame is
     bit-identical to :func:`render_seeds` of those seeds at its angle (a
     normal render's fidelity), and the sampling noise moves with the
     camera instead of being drawn anew. The warm-up and the map run once
@@ -638,10 +657,11 @@ def render_sequence_shared(config: Config, angles_deg, frames_per_batch: Optiona
     angles, per_batch, device = _sequence_setup(config, angles_deg, frames_per_batch, device)
     if config.iterations < 1:
         # blank frames carry no orbit: the per-frame engine's result
-        return render_sequence_batched(config, angles, per_batch, transparent, eight_bit,
+        return render_sequence_batched(config, angles, frames_per_batch=per_batch,
+                                       transparent=transparent, eight_bit=eight_bit,
                                        device=device)
     lanes = plan_schedule(config)[0]
-    base = _sequence_base(config)
+    base = _sequence_base(config, generator)
     rad = np.radians(angles)
     out = _host_frames(config, len(angles), transparent, eight_bit)
     for lo in range(0, len(angles), per_batch):

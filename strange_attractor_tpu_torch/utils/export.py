@@ -1,6 +1,7 @@
 """Image export (port of ``strange_attractor_tpu.utils.export``): the
 (transparent, 8-bit) conversion on the device, then PNG (8/16-bit), animated
-PNG, BMP (8-bit) and PAM (8/16-bit) writers on the host.
+PNG, BMP (8-bit) and PAM (8/16-bit) writers on the host, and a PNG reader
+(:func:`read_png`) for the tools that compare images.
 
 Mirrors the reference CLI's export matrix (src/bin/main.rs:27-104). PNG
 scanlines are filtered and deflated by the native host library of
@@ -132,6 +133,85 @@ def png_bytes(arr: np.ndarray) -> bytes:
     )
 
 
+def _unfilter(data: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the PNG scanline filters of ``data``, ``h`` rows of a filter
+    byte and ``w * bpp`` bytes: (h, w, bpp) uint8.
+
+    A byte depends on the decoded bytes one pixel left, up and up-left of
+    it (PNG spec 9.2-9.4; "left" is ``bpp`` bytes back), so every pixel of
+    one anti-diagonal ``row + column = d`` can be decoded at once from the
+    diagonals before it: h + w - 1 vector steps, whatever the rows'
+    filters. Paeth (type 4) takes a, then b, then c on ties, in integers,
+    as the spec's PaethPredictor does."""
+    rows = data.reshape(h, 1 + w * bpp)
+    kinds = rows[:, 0].astype(np.int64)
+    if h and kinds.max(initial=0) > 4:
+        raise ValueError(f"PNG: unknown scanline filter type {int(kinds.max())}")
+    filt = rows[:, 1:].reshape(h, w, bpp).astype(np.int16)
+    # one zero row above and one zero column left of the image
+    out = np.zeros((h + 1, w + 1, bpp), np.int16)
+    for d in range(h + w - 1):
+        r = np.arange(max(0, d - w + 1), min(h, d + 1))
+        c = d - r
+        a, b, ul = out[r + 1, c], out[r, c + 1], out[r, c]
+        k = kinds[r][:, None]
+        p = a + b - ul
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+        pred = np.where(k == 1, a, np.where(k == 2, b, np.where(k == 3, (a + b) >> 1,
+                                                                  np.where(k == 4, paeth, 0))))
+        out[r + 1, c + 1] = (filt[r, c] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path) -> np.ndarray:
+    """Decode a PNG file to an (H, W, 3|4) uint8 or uint16 array, with the
+    stdlib's zlib and numpy only.
+
+    Reads 8- and 16-bit RGB and RGBA (colour types 2 and 6), every
+    scanline filter, and image data split over any number of IDAT chunks.
+    An animated PNG gives its default image, the IDAT data (its fdAT
+    frames are skipped). Palette, greyscale and interlaced images, and
+    other bit depths, raise a ``ValueError`` that names the case."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        payload = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"IDAT":
+            idat.append(payload)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if header is None or not idat:
+        raise ValueError(f"{path}: PNG without IHDR or IDAT")
+    w, h, depth, color_type, _, _, interlace = header
+    names = {0: "greyscale", 3: "palette", 4: "greyscale with alpha"}
+    if color_type in names:
+        raise ValueError(f"{path}: {names[color_type]} PNG images are not supported "
+                         f"(RGB and RGBA only)")
+    if color_type not in (2, 6):
+        raise ValueError(f"{path}: unknown PNG colour type {color_type}")
+    if depth not in (8, 16):
+        raise ValueError(f"{path}: bit depth {depth} is not supported (8 and 16 only)")
+    if interlace:
+        raise ValueError(f"{path}: interlaced (Adam7) PNG images are not supported")
+    ch = 4 if color_type == 6 else 3
+    bpp = ch * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError(f"{path}: {raw.size} bytes of image data, expected "
+                         f"{h * (1 + w * bpp)} for {w}x{h}")
+    pixels = _unfilter(raw, h, w, bpp)
+    if depth == 16:
+        return pixels.view(">u2").reshape(h, w, ch).astype(np.uint16)
+    return pixels.reshape(h, w, ch)
+
+
 def _apng_delay(fps: float) -> tuple[int, int]:
     """(delay_num, delay_den): the exact rational frame delay ``1/fps`` s in
     the fcTL's two u16 fields; 0/den ("as fast as possible") for rates
@@ -181,6 +261,11 @@ def write_apng(path, frames: np.ndarray, fps: float = 30.0) -> Path:
     return path
 
 
+def write_png(path, arr: np.ndarray) -> None:
+    """Write :func:`png_bytes` of ``arr`` to ``path``."""
+    Path(path).write_bytes(png_bytes(arr))
+
+
 # ---------------------------------------------------------------- BMP ----
 
 
@@ -210,6 +295,11 @@ def bmp_bytes(arr: np.ndarray) -> bytes:
     return file_header + info + extra + row_bytes
 
 
+def write_bmp(path, arr: np.ndarray) -> None:
+    """Write :func:`bmp_bytes` of ``arr`` to ``path``."""
+    Path(path).write_bytes(bmp_bytes(arr))
+
+
 # ---------------------------------------------------------------- PAM ----
 
 
@@ -224,6 +314,11 @@ def pam_bytes(arr: np.ndarray) -> bytes:
     ).encode()
     data = arr.tobytes() if arr.dtype == np.uint8 else arr.astype(">u2").tobytes()
     return header + data
+
+
+def write_pam(path, arr: np.ndarray) -> None:
+    """Write :func:`pam_bytes` of ``arr`` to ``path``."""
+    Path(path).write_bytes(pam_bytes(arr))
 
 
 _ENCODERS = {"png": png_bytes, "bmp": bmp_bytes, "pam": pam_bytes}

@@ -167,10 +167,13 @@ def test_import_pulls_in_no_jax():
             "strange_attractor_tpu_torch.parallel.mesh, "
             "strange_attractor_tpu_torch.parallel.distributed, "
             "strange_attractor_tpu_torch.oracle, strange_attractor_tpu_torch.utils.completion, "
-            "strange_attractor_tpu_torch.utils.profiling; "
+            "strange_attractor_tpu_torch.utils.profiling, "
+            "strange_attractor_tpu_torch.tools.compare_reference, "
+            "strange_attractor_tpu_torch.tools.check_kernels; "
             "strange_attractor_tpu_torch.utils.native.get_lib(); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
-            "'strange_attractor_tpu.')) or m == 'strange_attractor_tpu']; "
+            "'strange_attractor_tpu.')) or m in ('strange_attractor_tpu', "
+            "'compare_reference', 'check_kernels')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
