@@ -28,8 +28,9 @@ all passed):
    pixel-0 share, and torch.bincount / scatter_reduce_ "amax" timed on the
    same chunks of both as the library yardstick;
 4. the flagship slice: poisson-saturne 1920x1080 Gas, 8-bit, seed 1, 1e8
-   iterations, render -> colorize -> convert -> one host copy -> PNG, with
-   both launch counters > 0 and a non-blank image; iters/s and wall time,
+   iterations, render -> colorize + convert (kernel T) -> one host copy ->
+   PNG, with every launch counter of the path > 0 (kernel A, bin_packed,
+   kernel T's reduction and pass) and a non-blank image; iters/s and wall time,
    split into render, colorize + convert, host copy and PNG encode, for
    the process's first frame and for a second, warm one; which
    PNG encoder ran (native or stdlib) and that frame's encode through the
@@ -191,7 +192,22 @@ all passed):
     over 3840x2160: KERNEL, EXACT_KERNEL, EXACT16_KERNEL (both ties) and
     DEPTH_KERNEL bit-identical to the sequential reference on a stream
     with a 35% pixel-0 flood, each launched once; each kernel's ms on that
-    chunk onto fresh planes.
+    chunk onto fresh planes;
+32. kernel T (csrc/tonemap.cu, the tone map's reduction and its pass fused
+    with the (transparent, 8-bit) conversion) at 1920x1080 and 3840x2160:
+    22 cases (the flagship's PACKED, EXACT and DEPTH states and
+    solar-sail's at 1e8, blank planes, and planted ones: counts from 2^31
+    up, NaN and >= 1.0 steps, special and NaN depths, all-negative and flat
+    depth planes; the default and a 64-stop palette, brightness saturating
+    both ways) in 8 output modes, each image bit-identical to the plain
+    chain on the card and on the CPU on the same planes copied to the host
+    (the largest channel difference is the row's max_abs_err), the stats to
+    colorize_stats and the log1p of the max count; then kernel T's and the plain
+    chain's ms a frame by CUDA events (Gas to 8-bit RGB and to u16 RGBA,
+    Depth to 8-bit RGB) with their bounds, and kernel T's launches in one
+    delivery (one reduction, one pass). Every delivery of phases 4, 8, 12,
+    15, 20, 26, 29 and 30 goes through kernel T, its launches counted (two
+    a frame in phase 12).
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -209,8 +225,11 @@ pixel-0 shares, phases 21-25's merge times, sharded rates
 and launches, ranks' walls and all_reduce times and sharded sequence rates,
 phases 26-29's first frames, precompile seconds, doctor's figures, the
 profiled frame and the 4K frame, phase 30's parity metrics and phase 31's
-certification seconds and chunk times, and each phase's seconds. The kernel A
-and bin_packed rows carry the 4K frame's launches (``launches_4k_1e9``).
+certification seconds and chunk times, phase 32's images compared and
+times, and each phase's seconds. The kernel A
+and bin_packed rows carry the 4K frame's launches (``launches_4k_1e9``);
+the ``tonemap`` row counts kernel T's two wrappers' launches in phase 4's
+first frame, and carries the other modes and the 4K canvas of phase 32.
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -592,12 +611,14 @@ def _flagship(sat, iterations: int, **kw):
 
 
 def _deliver(sat, cfg, state, out_base: Path, times: Optional[dict] = None):
-    """colorize -> 8-bit conversion on the card -> one host copy -> PNG;
-    returns (path, host image). ``times`` gets the seconds of each stage."""
-    from strange_attractor_tpu_torch.utils.export import convert_format_device, to_host, write_image
+    """colorize + 8-bit conversion on the card (kernel T, as
+    ``colorize_convert_fetch`` delivers) -> one host copy -> PNG; returns
+    (path, host image). ``times`` gets the seconds of each stage."""
+    from strange_attractor_tpu_torch.ops.colorize import tonemap
+    from strange_attractor_tpu_torch.utils.export import to_host, write_image
 
     t0 = time.perf_counter()
-    image = convert_format_device(sat.colorize(cfg, state), False, True)
+    image = tonemap(cfg, state, transparent=False, eight_bit=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     host = to_host(image)
@@ -613,7 +634,7 @@ def _counters() -> dict:
     counter attribute). Kernel A's wrapper also counts the launches of its
     float64 and of its gated instantiations, kernel P's those on a float64
     stream."""
-    from strange_attractor_tpu_torch.ops import emit, kernel_binning as kb
+    from strange_attractor_tpu_torch.ops import colorize, emit, kernel_binning as kb
 
     return {"map_emit": (emit.map_emit, "launches"),
             "map_emit_f64": (emit.map_emit, "f64_launches"),
@@ -623,7 +644,13 @@ def _counters() -> dict:
             "bin_packed": (kb.bin_chunk_kernel, "launches"),
             "bin_depth": (kb.bin_chunk_kernel_depth, "launches"),
             "bin_exact": (kb.bin_chunk_kernel_exact, "launches"),
-            "bin_exact16": (kb.bin_chunk_kernel_exact16, "launches")}
+            "bin_exact16": (kb.bin_chunk_kernel_exact16, "launches"),
+            "tonemap_stats": (colorize._tonemap_stats, "launches"),
+            "tonemap": (colorize.tonemap, "launches")}
+
+
+# kernel T's two wrappers: every delivery on the card launches both
+TONEMAP = ("tonemap_stats", "tonemap")
 
 
 def _zero_counters() -> dict:
@@ -642,8 +669,9 @@ def _require_launches(tag: str, counters: dict, kernels: tuple) -> dict:
 
 def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -> dict:
     """One frame through the user's entry points with every launch count at
-    0 just before it: render -> colorize -> 8-bit convert -> one host copy
-    -> PNG. Raises unless each of ``kernels`` launched and the image is lit."""
+    0 just before it: render -> colorize + 8-bit convert -> one host copy
+    -> PNG. Raises unless each of ``kernels`` and kernel T launched and the
+    image is lit."""
     from strange_attractor_tpu_torch.ops.binning import u32
 
     lanes, chunk, nchunks = sat.plan_schedule(cfg)
@@ -657,7 +685,7 @@ def _drive(sat, dev, cfg, out_base: Path, card: str, tag: str, kernels: tuple) -
     split = {"render": t_render}
     path, img = _deliver(sat, cfg, state, out_base, split)
     wall = time.perf_counter() - t0
-    launches = _require_launches(tag, counters, kernels)
+    launches = _require_launches(tag, counters, kernels + TONEMAP)
     if state.count is not None:
         total = int(u32(state.count).sum())
         if not 0 < total <= executed:
@@ -1172,8 +1200,9 @@ def phase_sequence_cell(sat, dev, out_dir: Path, card: str) -> dict:
         raise AssertionError(f"[12] schedule {lanes} x {chunk}, phase 10 timed "
                              f"{SEQ_LANES} x {SEQ_CHUNK}")
     runs, out = {}, {}
-    engines = (("shared", sat.render_sequence_shared, ("map_emit", "project_emit", "bin_packed")),
-               ("per-frame", sat.render_sequence_batched, ("map_emit", "bin_packed")))
+    engines = (("shared", sat.render_sequence_shared,
+                ("map_emit", "project_emit", "bin_packed") + TONEMAP),
+               ("per-frame", sat.render_sequence_batched, ("map_emit", "bin_packed") + TONEMAP))
     for name, engine, kernels in engines:
         for rep in range(2):
             counters = _zero_counters()
@@ -1182,6 +1211,9 @@ def phase_sequence_cell(sat, dev, out_dir: Path, card: str) -> dict:
             frames = engine(cfg, angles, transparent=False, eight_bit=True, device=dev)
             wall = time.perf_counter() - t0
             launches = _require_launches(f"[12] {name}", counters, kernels)
+            if launches["tonemap"] != len(angles) or launches["tonemap_stats"] != len(angles):
+                raise AssertionError(f"[12] {name}: kernel T launched {launches}, not twice a "
+                                     f"frame for {len(angles)} frames")
             if frames.shape != (len(angles), H, W, 3) or frames.dtype != np.uint8:
                 raise AssertionError(f"[12] {name}: frames {frames.shape} {frames.dtype}")
             print(f"[12] {name} orbit: {len(angles)} frames x {cfg.iterations:.0e} iterations "
@@ -1434,7 +1466,8 @@ def phase_presets(sat, dev, out_dir: Path, card: str) -> dict:
         cli.main(["-p", preset, "-i", str(PRESET_ITERS), "-w", str(W), "-h", str(H), "-8",
                   "--seed", "1", "-q", "-o", str(out), "--save-state", str(npz)])
         wall = time.perf_counter() - t0
-        launches = _require_launches(f"[15] {preset}", counters, ("map_emit", "bin_packed"))
+        launches = _require_launches(f"[15] {preset}", counters,
+                                     ("map_emit", "bin_packed") + TONEMAP)
         cfg = sat.presets.by_name(preset, iterations=PRESET_ITERS, width=W, height=H, seed=1)
         state = sat.load_state(str(npz), device=dev)
         img = sat.colorize(cfg, state)[..., :3]
@@ -1821,7 +1854,7 @@ def phase_axes_cli(sat, dev, out_dir: Path, card: str) -> dict:
               "2000", "-8", "-q", "--seed", "1", "-o", str(out), "--save-state", str(npz)])
     wall = time.perf_counter() - t0
     launches = _require_launches("[20] cli", counters, ("map_emit", "map_emit_gated",
-                                                        "bin_packed"))
+                                                        "bin_packed") + TONEMAP)
     cfg = _reseeded(sat, 10**9)
     img = sat.colorize(cfg, sat.load_state(str(npz), device=dev))[..., :3]
     lit = float((img.to(torch.int32).amax(dim=-1) > 0).float().mean())
@@ -2400,7 +2433,7 @@ def phase_4k(sat, dev, out_dir: Path, card: str) -> dict:
     cli.main(["-w", "3840", "-h", "2160", "-i", "1000000000", "-8", "--seed", "1", "-b",
               "-0.25", "-q", "-o", str(out_dir / "uhd_cli")])
     wall = time.perf_counter() - t0
-    launches = _require_launches("[29] 4K cli", counters, ("map_emit", "bin_packed"))
+    launches = _require_launches("[29] 4K cli", counters, ("map_emit", "bin_packed") + TONEMAP)
     size = _png_size(out_dir / "uhd_cli.png")
     if size != (3840, 2160):
         raise AssertionError(f"[29] the CLI's PNG is {size}")
@@ -2441,7 +2474,7 @@ def _parity_run(cr, cfg, out: Path, reference: Path, dev, kernels: tuple, tag: s
     t0 = time.perf_counter()
     run = cr.render_workload(cfg, out, dev)
     wall = time.perf_counter() - t0
-    launches = _require_launches(tag, counters, kernels)
+    launches = _require_launches(tag, counters, kernels + TONEMAP)
     metrics = cr.compare(reference, run["path"])
     print(f"{tag}: MAD {metrics['mad']:.6f}, correlation {metrics['correlation']:.6f}, "
           f"support IoU {metrics['support_iou']:.6f} against {reference.name}; render "
@@ -2515,6 +2548,232 @@ def phase_certify(card: str) -> dict:
               f"chunk onto fresh planes " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
               + f" on {card}")
         out[f"{w}x{h}"] = {"seconds": seconds, "launches": launches, "chunk_ms": ms}
+    return out
+
+
+# phase 32: kernel T's canvases, its states' iterations, and its output
+# modes: (config transparent, output transparent, eight_bit), the CLI's
+# four deliveries (the two flags equal), colorize()'s RGBA of an opaque
+# config and a transparent config delivered without alpha
+TONEMAP_CANVASES = ((1920, 1080), (3840, 2160))
+TONEMAP_ITERS = 100_000_000
+TONEMAP_MODES = ((True, True, False), (True, True, True), (False, False, False),
+                 (False, False, True), (False, True, False), (False, True, True),
+                 (True, False, False), (True, False, True))
+# float32 and float64 operations a pixel: the Gas pass (unpacking 3, the
+# palette lerp and its square roots 20, the brightness 16, the saturating
+# casts and the 8-bit conversion 11; one log1p in double, ~20 operations)
+# and the Depth pass (the reverse lerp and its cast)
+TONEMAP_OPS = {"gas": (50, 20), "depth": (8, 0)}
+
+
+def _tonemap_bound(npix: int, in_bytes: int, out_bytes: int, kind: str) -> dict:
+    """Kernel T's bound for one frame: each plane it reads once, the image
+    written once, and its operations at the float32 and float64 rates."""
+    f32_ops, f64_ops = (n * npix for n in TONEMAP_OPS[kind])
+    row = _bound(npix * (in_bytes + out_bytes), f32_ops)
+    by_ops = (f32_ops / PEAK_OPS + f64_ops / PEAK_OPS_F64) * 1e3
+    row.update(flops=f32_ops + f64_ops, f64_flops=f64_ops)
+    if by_ops > row["bound_ms"]:
+        row.update(bound_ms=by_ops, bound_by="operations")
+    return row
+
+
+def _tonemap_cases(sat, dev, w: int, h: int) -> list:
+    """Phase 32's cases at ``w`` x ``h``: (name, state, render kind,
+    colors). The states are the flagship's (PACKED by AUTO, EXACT by
+    exact-kernel, DEPTH by --depth) and solar-sail's (PACKED), rendered at
+    TONEMAP_ITERS on the card, blank ones, and planted ones made from them
+    with a seeded generator on the card: counts from 2^31 up (2^32 - 1
+    among them), NaN, infinite and >= 1.0 steps, special and NaN depths
+    (a NaN at the flood pixel (0, 0)), an all-negative plane and a flat
+    one. Gas cases under the default palette, a 64-stop one, and
+    brightness that saturates up and down."""
+    B, K = sat.BinStrategy, sat.RenderKind
+    flag = _flagship(sat, TONEMAP_ITERS).replace(width=w, height=h)
+    packed = sat.render(flag, device=dev)
+    exact = sat.render(flag.replace(bin_strategy=B.EXACT_KERNEL), device=dev)
+    depth = sat.render(flag.replace(render=K.DEPTH), device=dev)
+    sail = sat.render(_solar_sail(sat, TONEMAP_ITERS).replace(width=w, height=h), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    def mask(p: float) -> torch.Tensor:
+        return torch.rand((h, w), generator=gen, device=dev) < p
+
+    big = torch.where(mask(0.5), packed.count | torch.iinfo(torch.int32).min, packed.count)
+    big.view(-1)[7] = -1
+    special = torch.tensor([np.nan, 1.0, 1.5, np.inf, -np.inf, -0.5, -0.0, 0.999999,
+                            np.nextafter(np.float32(1.0), np.float32(0.0)), 1e-30],
+                           dtype=torch.float32, device=dev)
+    steps = torch.where(mask(0.01), special[0], exact.steps)
+    steps.view(-1)[:400] = special.repeat(40)
+    zbuf = depth.zbuf
+    valid = zbuf != -1.0
+    nan_z = zbuf.clone()
+    nan_z[0, 0] = float("nan")
+    nan_z.view(-1)[w * h // 2] = float("nan")
+    special_z = zbuf.clone()
+    special_z.view(-1)[:90] = torch.tensor([np.inf, -np.inf, -0.0, 0.0, 3.4e38, -3.4e38, 1e-40,
+                                            -1.0, 5.0], dtype=torch.float32,
+                                           device=dev).repeat(10)
+    blank = sat.RenderState.create(flag, device=dev)
+    state = sat.RenderState
+    pal64 = sat.Colors(palette=sat.Palette(
+        np.random.default_rng(64).random((64, 3)).round(6).tolist()))
+    bright = sat.Colors(brightness=sat.BrightnessConstants(offset=0.6, factor=2.5))
+    dark = sat.Colors(brightness=sat.BrightnessConstants(offset=-1.5, factor=1.0))
+    plain = flag.colors
+    gas = [("flagship", packed, plain), ("flagship 64-stop", packed, pal64),
+           ("flagship bright", packed, bright), ("flagship dark", packed, dark),
+           ("exact", exact, plain), ("exact 64-stop", exact, pal64),
+           ("exact bright", exact, bright), ("solar-sail dark", sail, dark),
+           ("exact special steps", exact._replace(steps=steps), plain),
+           ("counts from 2^31", packed._replace(count=big), plain),
+           ("empty", blank, plain), ("solar-sail", sail, plain),
+           ("solar-sail 64-stop", sail, pal64)]
+    cases = [(name, st, K.GAS, colors) for name, st, colors in gas]
+    depths = [("flagship packed", packed), ("exact", exact), ("depth", depth),
+              ("solar-sail", sail), ("NaN z", state(zbuf=nan_z)),
+              ("all-negative", state(zbuf=-zbuf.abs() - 0.5)),
+              ("flat", state(zbuf=torch.where(valid, 0.25, zbuf))),
+              ("all-sentinel", sat.RenderState.create(flag.replace(render=K.DEPTH), device=dev)),
+              ("special z", state(zbuf=special_z))]
+    return cases + [(name, st, K.DEPTH, plain) for name, st in depths]
+
+
+def _tonemap_check(tag: str, got: torch.Tensor, want: torch.Tensor, state) -> float:
+    """The largest channel difference of ``got`` and ``want`` (0.0 when
+    they are equal); raises unless they hold the same bytes, the message
+    counting the channels that differ, those by one step, and giving the
+    planes' values at the first of them."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tag}: {tuple(got.shape)} {got.dtype} against {tuple(want.shape)} "
+                             f"{want.dtype}")
+    if torch.equal(got, want):
+        return 0.0
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    bad = diff.nonzero()[:4].tolist()
+    inputs = {name: [plane[y, x].item() for y, x, _ in bad]
+              for name, plane in state._asdict().items() if plane is not None}
+    raise AssertionError(f"{tag}: {int((diff > 0).sum())} channels differ by up to "
+                         f"{int(diff.max())} "
+                         f"({int((diff == 1).sum())} by one step), first at {bad}: kernel "
+                         f"{[got[tuple(b)].item() for b in bad]}, twin "
+                         f"{[want[tuple(b)].item() for b in bad]}, planes {inputs}")
+
+
+def _same_stats(tag: str, got: tuple, want: tuple) -> None:
+    for g, w in zip(got, want):
+        g, w = float(g), float(w)
+        if not (g == w or (math.isnan(g) and math.isnan(w))):
+            raise AssertionError(f"{tag}: stats {[float(x) for x in got]}, twin "
+                                 f"{[float(x) for x in want]}")
+
+
+def _twin_stats(cfg, planes) -> tuple:
+    """What kernel T's reduction must leave for ``planes``: ``colorize_stats``,
+    for Gas beside the log1p of the max count that the pass divides by."""
+    from strange_attractor_tpu_torch.ops.colorize import _log1p_f32, colorize_stats
+
+    stats = colorize_stats(cfg, *planes)
+    return stats if len(stats) == 2 else (stats[0], _log1p_f32(stats[0]))  # Depth, Gas
+
+
+def _tonemap_canvas(sat, dev, w: int, h: int) -> tuple:
+    """Every case of :func:`_tonemap_cases` in every mode of TONEMAP_MODES:
+    kernel T against the plain chain on the card and against the plain
+    chain on the CPU on the same planes copied to the host, byte for byte;
+    the reduction's stats against the plain chain's on both. Returns the
+    number of images compared and the largest channel difference seen."""
+    from strange_attractor_tpu_torch.ops.colorize import (_tonemap_stats, colorize_planes,
+                                                          state_planes, tonemap)
+    from strange_attractor_tpu_torch.utils.export import convert_format_device
+
+    base = _flagship(sat, TONEMAP_ITERS).replace(width=w, height=h)
+    compared, err = 0, 0.0
+    for name, state, kind, colors in _tonemap_cases(sat, dev, w, h):
+        host = sat.RenderState(*(None if p is None else p.cpu() for p in state))
+        for cfg_t in (False, True):
+            cfg = base.replace(render=kind, colors=colors, transparent=cfg_t)
+            tag = f"[32] {w}x{h} {name} ({kind.value}, transparent config {cfg_t})"
+            _same_stats(tag + " stats, card twin", _tonemap_stats(cfg, state),
+                        _twin_stats(cfg, state_planes(state)))
+            _same_stats(tag + " stats, CPU twin", _tonemap_stats(cfg, state),
+                        _twin_stats(cfg, state_planes(host)))
+            card = colorize_planes(cfg, *state_planes(state))
+            cpu = colorize_planes(cfg, *state_planes(host))
+            for _, transparent, eight_bit in (m for m in TONEMAP_MODES if m[0] == cfg_t):
+                got = tonemap(cfg, state, transparent=transparent, eight_bit=eight_bit)
+                mode = f"{tag} -> {'RGBA' if transparent else 'RGB'} {8 if eight_bit else 16}-bit"
+                err = max(err, _tonemap_check(mode + " against the card twin", got,
+                                              convert_format_device(card, transparent, eight_bit),
+                                              state),
+                          _tonemap_check(mode + " against the CPU twin", got.cpu(),
+                                         convert_format_device(cpu, transparent, eight_bit),
+                                         host))
+                compared += 1
+    torch.cuda.synchronize()
+    return compared, err
+
+
+def _tonemap_timing(sat, dev, w: int, h: int) -> dict:
+    """ms a frame of kernel T (its reduction and pass) and of the plain
+    chain on the card, by CUDA events, for the flagship's PACKED state to
+    8-bit RGB (the CLI's delivery) and to u16 RGBA, and for its DEPTH state
+    to 8-bit RGB; each with its bound. Then kernel T's launches for one
+    ``colorize_convert_fetch``, counted."""
+    from strange_attractor_tpu_torch.ops.colorize import (_tonemap_stats, colorize_planes,
+                                                          state_planes, tonemap)
+    from strange_attractor_tpu_torch.utils.export import convert_format_device
+
+    npix = w * h
+    flag = _flagship(sat, TONEMAP_ITERS).replace(width=w, height=h)
+    rgba = flag.replace(transparent=True)
+    depth_cfg = flag.replace(render=sat.RenderKind.DEPTH)
+    packed = sat.render(flag, device=dev)
+    depth = sat.render(depth_cfg, device=dev)
+    rows = {}
+    for name, cfg, state, transparent, eight_bit, in_bytes, kind in (
+            ("gas_rgb8", flag, packed, False, True, 8, "gas"),
+            ("gas_rgba16", rgba, packed, True, False, 8, "gas"),
+            ("depth_rgb8", depth_cfg, depth, False, True, 4, "depth")):
+        out_bytes = (4 if transparent else 3) * (1 if eight_bit else 2)
+        ms = _time_ms(lambda: tonemap(cfg, state, transparent=transparent, eight_bit=eight_bit),
+                      reps=50)
+        plain_ms = _time_ms(lambda: convert_format_device(
+            colorize_planes(cfg, *state_planes(state)), transparent, eight_bit), reps=10)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms,
+                      **_tonemap_bound(npix, in_bytes, out_bytes, kind)}
+    rows["gas_rgb8"]["stats_ms"] = _time_ms(lambda: _tonemap_stats(flag, packed), reps=50)
+    counters = _zero_counters()
+    sat.colorize_convert_fetch(flag, packed, transparent=False, eight_bit=True)
+    rows["launches_per_frame"] = {k: getattr(*counters[k]) for k in TONEMAP}
+    if rows["launches_per_frame"] != {"tonemap_stats": 1, "tonemap": 1}:
+        raise AssertionError(f"[32] a delivery launched {rows['launches_per_frame']}, not one "
+                             f"reduction and one pass")
+    return rows
+
+
+def phase_tonemap(sat, dev, card: str) -> dict:
+    """Kernel T (csrc/tonemap.cu) at 1920x1080 and 3840x2160: every case
+    and mode against its plain twin on the card and on the CPU, bit for
+    bit (:func:`_tonemap_canvas`); then timed (:func:`_tonemap_timing`)."""
+    out = {}
+    for w, h in TONEMAP_CANVASES:
+        t0 = time.perf_counter()
+        compared, err = _tonemap_canvas(sat, dev, w, h)
+        print(f"[32] kernel T at {w}x{h}: {compared} images bit-identical to the plain chain on "
+              f"the card and on the CPU, largest channel difference {err} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        rows = _tonemap_timing(sat, dev, w, h)
+        for name, row in rows.items():
+            if name != "launches_per_frame":
+                print(f"[32] {w}x{h} {name}: kernel T {row['ms']:.4f} ms a frame, plain chain "
+                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                      f"({row['bytes'] / 1e6:.1f} MB; {row['bound_by']}) on {card}")
+        print(f"[32] {w}x{h}: the reduction {rows['gas_rgb8']['stats_ms']:.4f} ms; launches a "
+              f"delivery {rows['launches_per_frame']}")
+        out[f"{w}x{h}"] = {"compared": compared, "max_abs_err": err, **rows}
     return out
 
 
@@ -2677,6 +2936,24 @@ def _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders, rk4, preset_r
     return rows
 
 
+def _tonemap_row(s: dict, t: dict) -> dict:
+    """Kernel T's ``kernels`` row: its launches in the flagship frame of
+    phase 4 (the reduction and the pass), its 1080p Gas 8-bit RGB frame's
+    time beside the plain chain's and its bound, the other modes and the
+    4K canvas beside them."""
+    hd, uhd = (t[f"{w}x{h}"] for w, h in TONEMAP_CANVASES)
+    launches = {k: s["launches"][k] for k in TONEMAP}
+    return {"name": "tonemap", "route": "cuda", "source": _SOURCE + "tonemap.cu",
+            "replaces": "strange_attractor_tpu/render.py:646", "launches": sum(launches.values()),
+            "launches_parts": launches, "launches_per_frame": hd["launches_per_frame"],
+            "max_abs_err": max(hd["max_abs_err"], uhd["max_abs_err"]), **hd["gas_rgb8"],
+            "library_ms": None,
+            "library_note": LIBRARY_NOTE,
+            "modes": {"gas_rgba16": hd["gas_rgba16"], "depth_rgb8": hd["depth_rgb8"]},
+            "uhd": {k: uhd[k] for k in ("gas_rgb8", "gas_rgba16", "depth_rgb8")},
+            "images_compared": hd["compared"] + uhd["compared"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this check needs an NVIDIA card",
@@ -2730,6 +3007,7 @@ def main() -> int:
         uhd = lap("29", phase_4k(sat, dev, Path(tmp), card))
         parity = lap("30", phase_reference_parity(sat, dev, Path(tmp), card))
         certified = lap("31", phase_certify(card))
+        tonemapped = lap("32", phase_tonemap(sat, dev, card))
     renders = lap("13", phase_renders(sat, dev, card))
     rk4_renders = lap("16", phase_rk4_renders(sat, dev, card))
     axes_renders = lap("19", phase_axes_renders(sat, dev, card))
@@ -2737,6 +3015,7 @@ def main() -> int:
         raise AssertionError("the port imported jax")
     kernels = _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders, rk4, preset_runs,
                            rk4_renders) + _axes_rows(axes, axes_twins, axes_renders, axes_cli)
+    kernels.append(_tonemap_row(s, tonemapped))
     for row in kernels[:2]:  # map_emit and bin_packed: the 4K frame's launches and check
         row["launches_4k_1e9"] = uhd["launches"][row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], uhd["err"])
@@ -2750,7 +3029,7 @@ def main() -> int:
                       "merge_ms": merge_ms, "sharded": sharded, "ranks": ranks,
                       "sequence_sharded": seq_sharded, "precompile": precompiled,
                       "doctor": doctor, "profile": profiled, "uhd": uhd, "parity": parity,
-                      "certify": certified}))
+                      "certify": certified, "tonemap": tonemapped}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

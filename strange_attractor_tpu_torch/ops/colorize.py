@@ -13,9 +13,26 @@ two functions taken correctly rounded on every device: the square root
 and rounded once. XLA's CPU ``log1p`` is faithful but not correctly rounded
 (one ulp off on about 0.8% of integer counts), so the brightness factor can
 sit one ulp from the JAX package's, which the tests bound.
+
+The JAX package runs the tone map and the (transparent, 8-bit) conversion
+as one XLA fusion. Here they are kernel T, ``csrc/tonemap.cu``, behind
+:func:`tonemap`: two wrapper launches a frame, the global reduction and the
+elementwise pass fused with the conversion, four operations on the card's
+stream (a 16-byte memset, the reduction, its one-thread finalize, the
+pass; the palette goes to the card once), where the plain chain
+(:func:`colorize_stats`, :func:`colorize_planes`, then
+:func:`utils.export.convert_format_device`) launches some 150 eager ops.
+:func:`tonemap` runs the plain chain for a state on the CPU; for a state on
+a card it launches the kernel, adds one to each wrapper's ``launches``
+count and raises when it cannot launch, never falling back to the plain
+chain there.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,6 +40,8 @@ import torch
 from ..config import Config, RenderKind
 from ..models.transforms import sqrt_ieee
 from ..runtime import RenderState
+from ..utils.export import convert_format_device
+from . import cuda_lib
 from .binning import u32, unpack_zv
 from .projection import f32
 
@@ -131,3 +150,96 @@ def colorize_planes(config: Config, count, steps, zbuf, stats=None):
     else:
         alpha = torch.full(tuple(count.shape), 65535, dtype=torch.uint16, device=count.device)
     return torch.cat([rgb16, alpha[..., None]], dim=-1)
+
+
+def _kernel_planes(state: RenderState) -> list:
+    """The state's planes as kernel T reads them, each a pointer or 0:
+    (count, steps, zbuf, packed); raises unless every plane is a
+    contiguous plane of its dtype on one Hopper card."""
+    shape, ptrs = state.shape, []
+    for name in ("count", "steps", "zbuf", "packed"):
+        t = getattr(state, name)
+        if t is None:
+            ptrs.append(0)
+            continue
+        cuda_lib.check_tensor(t, torch.float32 if name in ("steps", "zbuf") else torch.int32,
+                              name)
+        if tuple(t.shape) != shape or t.device != state.device:
+            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, the state "
+                             f"{shape} on {state.device}")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def _tonemap_stats(config: Config, state: RenderState) -> torch.Tensor:
+    """Kernel T's reduction (``csrc/tonemap.cu`` ``sat_tonemap_stats``) of a
+    state on a card into a (2,) float32 tensor there: Gas (max count, its
+    ``_log1p_f32``), Depth (zmax, zmin), as :func:`colorize_stats` gives
+    them. Raises when it cannot launch."""
+    count, _, zbuf, packed = _kernel_planes(state)
+    # 4 words of the reduction's scratch, then the 2 float32 stats
+    buf = torch.empty(6, dtype=torch.int32, device=state.device)
+    stats = buf[4:].view(torch.float32)
+    cuda_lib.launch("sat_tonemap_stats", state.device, count, zbuf, packed,
+                    math.prod(state.shape), int(config.render == RenderKind.DEPTH),
+                    buf.data_ptr(), stats.data_ptr())
+    _tonemap_stats.launches += 1
+    return stats
+
+
+@functools.lru_cache(maxsize=8)
+def _card_palette(stops: bytes, device: torch.device) -> torch.Tensor:
+    """A palette's float32 stops on a card, copied there once a palette."""
+    return torch.frombuffer(bytearray(stops), dtype=torch.float32).to(device)
+
+
+def _out_tensor(out: Optional[torch.Tensor], shape: tuple, dtype, device) -> torch.Tensor:
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if tuple(out.shape) != shape or out.dtype != dtype or out.device != device:
+        raise ValueError(f"out must be a {shape} {dtype} tensor on {device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    return out
+
+
+def tonemap(config: Config, state: RenderState, *, transparent: bool = True,
+            eight_bit: bool = False, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A state's image: the tone map (:func:`colorize_planes`, alpha as
+    ``config.transparent`` says) and the conversion
+    (:func:`utils.export.convert_format_device`: alpha kept when
+    ``transparent``, 8-bit when ``eight_bit``), an (H, W, 4 or 3) uint16
+    or uint8 tensor on the state's device. ``out`` optionally takes the
+    image (a contiguous tensor of its shape and dtype on the device).
+
+    On the CPU it runs the plain chain. On a card it launches kernel T
+    (``csrc/tonemap.cu``): its reduction, then ``sat_tonemap``, the
+    elementwise pass and the conversion in one."""
+    depth = config.render == RenderKind.DEPTH
+    if not depth:
+        _check_gas(state.count)
+    shape = (*state.shape, 4 if transparent else 3)
+    dtype = torch.uint8 if eight_bit else torch.uint16
+    if state.device.type == "cpu":
+        img = convert_format_device(colorize_planes(config, *state_planes(state)), transparent,
+                                    eight_bit)
+        return img if out is None else _out_tensor(out, shape, dtype, state.device).copy_(img)
+    dev = state.device
+    planes = _kernel_planes(state)
+    out = _out_tensor(out, shape, dtype, dev)
+    cuda_lib.check_tensor(out, dtype, "out")
+    stats = _tonemap_stats(config, state)
+    palette, k = 0, 0
+    if not depth:
+        stops = config.colors.palette.stops
+        k = stops.shape[0] - 1
+        palette = _card_palette(stops.astype(np.float32).tobytes(), dev).data_ptr()
+    bk = config.colors.brightness
+    cuda_lib.launch("sat_tonemap", dev, *planes, stats.data_ptr(), palette, k, bk.offset,
+                    bk.factor, math.prod(state.shape), int(depth), int(config.transparent),
+                    shape[-1], int(eight_bit), out.data_ptr())
+    tonemap.launches += 1
+    return out
+
+
+_tonemap_stats.launches = 0
+tonemap.launches = 0

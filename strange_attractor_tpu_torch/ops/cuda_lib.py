@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # kernels per (compute type, map) pair
 SOURCES = ("map_emit_f64_cyclic.cu", "map_emit_f64.cu", "map_emit_rk4_cyclic.cu",
            "map_emit_rk4.cu", "map_emit.cu", "project_emit.cu", "bin_packed.cu", "bin_depth.cu",
-           "bin_exact.cu", "bin_exact16.cu")
+           "bin_exact.cu", "bin_exact16.cu", "tonemap.cu")
 HEADERS = ("emit_common.cuh", "map_emit.cuh", "bin_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-Xcompiler", "-fPIC")
@@ -77,6 +77,24 @@ class ReseedArgs(ctypes.Structure):
 
     _fields_ = [("age", ctypes.c_void_p), ("key", ctypes.c_uint64), ("chunk", ctypes.c_uint32),
                 ("warmup", ctypes.c_int)]
+
+
+_vp, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# each entry point's arguments before the stream, which every one takes last;
+# each returns cudaGetLastError()
+ARGTYPES = {
+    "sat_map_emit": [_vp, _i32, _i32, _i32, EmitParams, ReseedArgs, _vp, _vp, _vp, _vp],
+    "sat_map_emit_f64": [_vp, _i32, _i32, _i32, EmitParams64, ReseedArgs, _vp, _vp, _vp, _vp],
+    "sat_project_emit": [_i64, _i32, EmitParams, _vp, _vp, _vp, _vp, _vp, _vp],
+    "sat_project_emit_f64": [_i64, _i32, EmitParams64, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    "sat_bin_packed": [_vp, _vp, _vp, _vp, _i64, _i32],
+    "sat_bin_depth": [_vp, _vp, _vp, _i64, _i32],
+    "sat_bin_exact": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32],
+    "sat_bin_exact16": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32],
+    "sat_tonemap_stats": [_vp, _vp, _vp, _i64, _i32, _vp, _vp],
+    "sat_tonemap": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _f32, _f32, _i64, _i32, _i32, _i32, _i32,
+                    _vp],
+}
 
 
 _LIB: dict = {}
@@ -143,24 +161,12 @@ def library() -> ctypes.CDLL:
     if lib is not None:
         return lib
     lib = ctypes.CDLL(str(build()))
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # every entry point ends with the stream and returns cudaGetLastError()
-    argtypes = {
-        "sat_map_emit": [vp, i32, i32, i32, EmitParams, ReseedArgs, vp, vp, vp, vp],
-        "sat_map_emit_f64": [vp, i32, i32, i32, EmitParams64, ReseedArgs, vp, vp, vp, vp],
-        "sat_project_emit": [i64, i32, EmitParams, vp, vp, vp, vp, vp, vp],
-        "sat_project_emit_f64": [i64, i32, EmitParams64, vp, vp, vp, vp, vp, vp, vp],
-        "sat_bin_packed": [vp, vp, vp, vp, i64, i32],
-        "sat_bin_depth": [vp, vp, vp, i64, i32],
-        "sat_bin_exact": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32],
-        "sat_bin_exact16": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32],
-    }
-    for name, types in argtypes.items():
+    for name, types in ARGTYPES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [*types, vp]
+        fn.argtypes = [*types, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     # no launch: the tiles csrc/bin_tile.cuh cuts a canvas of npix pixels into
-    lib.sat_bin_tiles.argtypes = [i32]
+    lib.sat_bin_tiles.argtypes = [ctypes.c_int]
     lib.sat_bin_tiles.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
