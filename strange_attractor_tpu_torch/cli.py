@@ -22,7 +22,8 @@ or ``--device cuda:N`` keeps one), and ``--distributed`` (or
 ``--coordinator HOST:PORT --num-processes N --process-id I``) splits them
 over processes (``parallel.distributed``), of which only the first writes
 files. ``--profile DIR`` records a ``torch.profiler`` trace of the render
-and its delivery into DIR.
+and its delivery into DIR, with the port's spans (``utils.profiling.span``)
+on its clock, the encoder threads' among them.
 
     python -m strange_attractor_tpu_torch doctor            # the install, on the card
     python -m strange_attractor_tpu_torch completion --shell zsh --install
@@ -309,7 +310,12 @@ def _write_frames(frames, write) -> None:
     so the next frame renders while earlier ones encode; the frames waiting
     on an encoder stay few. A failed write raises after every encoder has
     finished (the JAX CLI's ``write_async``, strange_attractor_tpu/cli.py:
-    407-430)."""
+    407-430). Under a profiler each write records its spans on its
+    encoder thread, with the caller's innermost span as their parent
+    (:func:`utils.profiling.carried`)."""
+    from .utils.profiling import carried
+
+    write = carried(write)
     futures, pending = [], set()
     with ThreadPoolExecutor(max_workers=ENCODERS) as pool:
         for image, path in frames:

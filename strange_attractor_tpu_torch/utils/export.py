@@ -8,6 +8,14 @@ scanlines are filtered and deflated by the native host library of
 :mod:`utils.native` (``csrc/fastdeflate.cpp``: a multi-threaded adaptive
 filter and a parallel deflate), and by numpy and the stdlib's zlib where it
 cannot be built. 16-bit PNG samples are big-endian per the PNG spec.
+
+Spans (:func:`utils.profiling.span`, recorded under a profiler only):
+``deliver.copy`` (:func:`to_host`; ``bytes``), ``image.write``
+(:func:`write_image`, whole; ``fmt``, ``bytes`` of the file),
+``png.filter`` (``bytes_in``, ``bytes_out``, ``native`` 1 or 0),
+``png.deflate`` (``bytes_in``, ``bytes_out``, ``threads``) and
+``file.write`` (``bytes``). ``image.write``'s time outside its children
+is the host's format pass, the CRC and the join.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .native import png_filter_adaptive, zlib_compress_parallel
+from .native import deflate_threads, png_filter_adaptive, zlib_compress_parallel
+from .profiling import span
 
 
 def convert_format(image_u16: np.ndarray, transparent: bool, eight_bit: bool) -> np.ndarray:
@@ -48,7 +57,11 @@ def convert_format_device(image_u16: torch.Tensor, transparent: bool, eight_bit:
 
 def to_host(image: torch.Tensor) -> np.ndarray:
     """One device-to-host copy of a converted image."""
-    return image.contiguous().cpu().numpy()
+    with span("deliver.copy") as sp:
+        out = image.contiguous().cpu().numpy()
+        if sp:
+            sp.set(bytes=out.nbytes)
+    return out
 
 
 # ---------------------------------------------------------------- PNG ----
@@ -77,11 +90,14 @@ def _filter_scanlines(raw: np.ndarray, h: int) -> bytes:
     raw = np.ascontiguousarray(raw)
     rows = raw.reshape(h, -1).view(np.uint8).reshape(h, -1)
     bpp = raw.shape[-1] * raw.itemsize
-    if h > 0:
-        out = png_filter_adaptive(rows, bpp)
-        if out is not None:
-            return out
-    return _filter_scanlines_numpy(rows, bpp)
+    with span("png.filter", bytes_in=rows.nbytes) as sp:
+        out = png_filter_adaptive(rows, bpp) if h > 0 else None
+        native = out is not None
+        if not native:
+            out = _filter_scanlines_numpy(rows, bpp)
+        if sp:
+            sp.set(bytes_out=len(out), native=int(native))
+    return out
 
 
 def _filter_scanlines_numpy(rows: np.ndarray, bpp: int) -> bytes:
@@ -123,11 +139,20 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
     return out + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF)
 
 
+def _deflate(filtered: bytes) -> bytes:
+    """The zlib stream of a frame's filtered scanlines, at level 6."""
+    with span("png.deflate", bytes_in=len(filtered)) as sp:
+        out = zlib_compress_parallel(filtered, 6)
+        if sp:
+            sp.set(bytes_out=len(out), threads=deflate_threads(len(filtered)))
+    return out
+
+
 def png_bytes(arr: np.ndarray) -> bytes:
     """Encode (H, W, 3|4) uint8/uint16 as a PNG byte string."""
     h, w, depth, color_type, raw = _png_geometry(arr)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
-    idat = zlib_compress_parallel(_filter_scanlines(raw, h), 6)
+    idat = _deflate(_filter_scanlines(raw, h))
     return b"".join(
         [b"\x89PNG\r\n\x1a\n", _chunk(b"IHDR", ihdr), _chunk(b"IDAT", idat), _chunk(b"IEND", b"")]
     )
@@ -244,7 +269,7 @@ def apng_bytes(frames: np.ndarray, fps: float = 30.0, loops: int = 0) -> bytes:
         out.append(_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, delay_num,
                                                delay_den, 0, 0)))
         seq += 1
-        data = zlib_compress_parallel(_filter_scanlines(raw, h), 6)
+        data = _deflate(_filter_scanlines(raw, h))
         if f == 0:
             out.append(_chunk(b"IDAT", data))
         else:
@@ -332,13 +357,18 @@ def write_image(base_path, image: np.ndarray, *, fmt: str = "png", transparent: 
     (the CLI's previews)."""
     if fmt not in _ENCODERS:
         raise ValueError(f"unknown format {fmt!r} (png, bmp, pam)")
-    if not silent:
-        print("Converting image format.")
-    arr = convert_format(image, transparent, eight_bit)
-    path = Path(base_path).with_suffix("." + fmt)
-    if not silent:
-        print("Rendering complete. Writing file.")
-    path.write_bytes(_ENCODERS[fmt](arr))
+    with span("image.write", fmt=fmt) as sp:
+        if not silent:
+            print("Converting image format.")
+        arr = convert_format(image, transparent, eight_bit)
+        path = Path(base_path).with_suffix("." + fmt)
+        if not silent:
+            print("Rendering complete. Writing file.")
+        data = _ENCODERS[fmt](arr)
+        with span("file.write", bytes=len(data)):
+            path.write_bytes(data)
+        if sp:
+            sp.set(bytes=len(data))
     if announce:
         print(f"Wrote image to '{path}'.")
     return path

@@ -75,18 +75,28 @@ def encoder() -> str:
     return "native" if get_lib() is not None else "stdlib"
 
 
+def deflate_threads(n: int, threads: Optional[int] = None) -> int:
+    """The threads :func:`zlib_compress_parallel` deflates ``n`` bytes on
+    (``threads`` as it is given there): 1 where it takes the stdlib's
+    ``zlib.compress``."""
+    if threads is None:
+        threads = min(16, os.cpu_count() or 1)
+    if get_lib() is None or n < (1 << 21) or threads < 2:
+        return 1
+    return threads
+
+
 def zlib_compress_parallel(data: bytes, level: int = 6, threads: Optional[int] = None) -> bytes:
     """A zlib stream of ``data`` deflated on up to 16 threads; the stdlib's
     ``zlib.compress`` for payloads under 2 MB, on one core, or without the
     library. The stream decompresses with ``zlib.decompress``; above 2 MB
     its bytes differ from ``zlib.compress``'s, since each >= 1 MB stripe is
     deflated on its own."""
-    if threads is None:
-        threads = min(16, os.cpu_count() or 1)
-    lib = get_lib()
     n = len(data)
-    if lib is None or n < (1 << 21) or threads < 2:
+    threads = deflate_threads(n, threads)
+    if threads < 2:
         return zlib.compress(data, level)
+    lib = get_lib()
     cap = n + (n >> 9) + 64 + 16 * threads
     out = ctypes.create_string_buffer(cap)
     written = lib.fastdeflate_zlib(data, n, level, threads, out, cap)
