@@ -2,77 +2,107 @@
 //
 // The reference overlaps host-side PNG encoding with rendering by spawning
 // one encoder thread per frame (src/bin/main.rs:507-516); single-stream
-// deflate is still the per-frame bottleneck at ~40 MB/s. This splits the
-// filtered scanline stream into stripes, deflates them on worker threads as
-// independent raw-deflate segments flushed at bit boundaries (Z_FULL_FLUSH),
-// and stitches them into one spec-valid zlib stream (pigz's trick):
+// deflate is still the per-frame bottleneck at ~40 MB/s. This cuts the
+// filtered scanline stream into fixed 256 KB stripes, deflates them as
+// independent raw-deflate segments flushed at byte boundaries
+// (Z_FULL_FLUSH), and stitches them into one spec-valid zlib stream
+// (pigz's trick):
 //
-//   [0x78 0xDA] [stripe 0 raw deflate, full-flush] ... [last stripe, finish]
+//   [0x78 0x9C] [stripe 0 raw deflate, full-flush] ... [last stripe, finish]
 //   [adler32 of the whole input, via adler32_combine]
+//
+// A render's light sits in a few rows, so stripes differ several times in
+// cost: workers pull the next stripe index from a shared counter until none
+// is left, and the call ends with the total work spread over the cores
+// rather than with the densest stripe. Each stripe but the first is primed
+// with the 32 KB of input before it (deflateSetDictionary), so its matches
+// may reach back across the boundary as one stream's would. The stripe size
+// depends on nothing but `n`, so the stream's bytes do not depend on the
+// thread count.
 //
 // Host code, not a device kernel: built with g++ at first use by
 // strange_attractor_tpu_torch/utils/native.py (into build/torch_kernels/);
-// the stdlib writer is the fallback. A copy of the JAX package's
-// strange_attractor_tpu/native/fastdeflate.cpp.
+// the stdlib writer is the fallback. The JAX package's
+// strange_attractor_tpu/native/fastdeflate.cpp is the design this grew from.
 
 #include <zlib.h>
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <thread>
 #include <vector>
 
+constexpr long kStripe = 1L << 18;  // 256 KB of input a stripe
+constexpr long kWindow = 1L << 15;  // deflate's 32 KB window: the priming
+
 extern "C" {
 
-// Compress `n` bytes of `data` into a complete zlib stream in `out`.
-// Returns the stream length, or -1 on error / insufficient `out_cap`
-// (callers should provide compressBound(n) + 16 * threads).
+// The stripes fastdeflate_zlib cuts `n` >= 0 bytes into.
+long fastdeflate_stripes(long n) { return n > kStripe ? (n + kStripe - 1) / kStripe : 1; }
+
+// Compress `n` bytes of `data` into a complete zlib stream in `out` on up
+// to `threads` workers. Returns the stream length, or -1 on error /
+// insufficient `out_cap` (callers should provide n + (n >> 9) + 64 + 32 per
+// stripe: see utils/native.py).
 long fastdeflate_zlib(const uint8_t* data, long n, int level, int threads,
                       uint8_t* out, long out_cap) {
   if (n < 0 || level < 1 || level > 9) return -1;
   if (threads < 1) threads = 1;
   if (threads > 64) threads = 64;
-  long stripe = (n + threads - 1) / threads;
-  if (stripe < (1 << 20)) stripe = (1 << 20);  // >=1MB per stripe
-  int t = (int)((n + stripe - 1) / stripe);
-  if (t < 1) t = 1;
+  const int t = (int)fastdeflate_stripes(n);
+  if (threads > t) threads = t;
 
   std::vector<std::vector<uint8_t>> parts(t);
   std::vector<unsigned long> adlers(t);
   std::vector<int> errs(t, 0);
-  std::vector<std::thread> pool;
+  std::atomic<int> next{0};
 
-  for (int i = 0; i < t; ++i) {
-    pool.emplace_back([&, i]() {
-      long off = (long)i * stripe;
-      long len = n - off < stripe ? n - off : stripe;
-      bool last = (i == t - 1);
-      z_stream zs;
-      std::memset(&zs, 0, sizeof(zs));
-      // raw deflate (negative windowBits): we add the zlib wrapper ourselves
-      if (deflateInit2(&zs, level, Z_DEFLATED, -15, 9, Z_DEFAULT_STRATEGY) != Z_OK) {
+  auto deflate_stripe = [&](int i) {
+    long off = (long)i * kStripe;
+    long len = n - off < kStripe ? n - off : kStripe;
+    bool last = (i == t - 1);
+    z_stream zs;
+    std::memset(&zs, 0, sizeof(zs));
+    // raw deflate (negative windowBits): we add the zlib wrapper ourselves;
+    // a fresh stream a stripe, so no stripe sees what a worker did before
+    if (deflateInit2(&zs, level, Z_DEFLATED, -15, 9, Z_DEFAULT_STRATEGY) != Z_OK) {
+      errs[i] = 1;
+      return;
+    }
+    if (off > 0) {
+      long dict = off < kWindow ? off : kWindow;
+      if (deflateSetDictionary(&zs, data + off - dict, (uInt)dict) != Z_OK) {
+        deflateEnd(&zs);
         errs[i] = 1;
         return;
       }
-      uLong cap = deflateBound(&zs, (uLong)len) + 64;
-      parts[i].resize(cap);
-      zs.next_in = const_cast<Bytef*>(data + off);
-      zs.avail_in = (uInt)len;
-      zs.next_out = parts[i].data();
-      zs.avail_out = (uInt)cap;
-      int rc = deflate(&zs, last ? Z_FINISH : Z_FULL_FLUSH);
-      // Z_OK is also what deflate returns when avail_out ran dry with input
-      // left over (deflateBound is only documented for single-shot usage):
-      // without the avail_in check a too-small buffer would silently drop
-      // part of a stripe and stitch a corrupt stream instead of failing
-      if ((last && rc != Z_STREAM_END) ||
-          (!last && (rc != Z_OK || zs.avail_in != 0)))
-        errs[i] = 1;
-      parts[i].resize(cap - zs.avail_out);
-      deflateEnd(&zs);
-      adlers[i] = adler32(adler32(0L, Z_NULL, 0), data + off, (uInt)len);
-    });
-  }
+    }
+    uLong cap = deflateBound(&zs, (uLong)len) + 64;
+    parts[i].resize(cap);
+    zs.next_in = const_cast<Bytef*>(data + off);
+    zs.avail_in = (uInt)len;
+    zs.next_out = parts[i].data();
+    zs.avail_out = (uInt)cap;
+    int rc = deflate(&zs, last ? Z_FINISH : Z_FULL_FLUSH);
+    // Z_OK is also what deflate returns when avail_out ran dry with input
+    // left over (deflateBound is only documented for single-shot usage):
+    // without the avail_in check a too-small buffer would silently drop
+    // part of a stripe and stitch a corrupt stream instead of failing
+    if ((last && rc != Z_STREAM_END) ||
+        (!last && (rc != Z_OK || zs.avail_in != 0)))
+      errs[i] = 1;
+    parts[i].resize(cap - zs.avail_out);
+    deflateEnd(&zs);
+    adlers[i] = adler32(adler32(0L, Z_NULL, 0), data + off, (uInt)len);
+  };
+  auto work = [&]() {
+    for (int i = next.fetch_add(1); i < t; i = next.fetch_add(1)) deflate_stripe(i);
+  };
+
+  std::vector<std::thread> pool;
+  for (int w = 1; w < threads; ++w) pool.emplace_back(work);
+  work();  // the calling thread is one of the workers
   for (auto& th : pool) th.join();
   for (int i = 0; i < t; ++i)
     if (errs[i]) return -1;
@@ -83,15 +113,15 @@ long fastdeflate_zlib(const uint8_t* data, long n, int level, int threads,
 
   long pos = 0;
   out[pos++] = 0x78;  // CMF: deflate, 32k window
-  out[pos++] = 0xDA;  // FLG: max compression preset, check bits valid
+  out[pos++] = 0x9C;  // FLG: default level preset (zlib.compress's at 6), check bits valid
   for (auto& p : parts) {
     std::memcpy(out + pos, p.data(), p.size());
     pos += (long)p.size();
   }
   unsigned long ad = adlers[0];
   for (int i = 1; i < t; ++i) {
-    long len = n - (long)i * stripe;
-    if (len > stripe) len = stripe;
+    long len = n - (long)i * kStripe;
+    if (len > kStripe) len = kStripe;
     ad = adler32_combine(ad, adlers[i], len);
   }
   out[pos++] = (uint8_t)(ad >> 24);

@@ -13,7 +13,7 @@ Spans (:func:`utils.profiling.span`, recorded under a profiler only):
 ``deliver.copy`` (:func:`to_host`; ``bytes``), ``image.write``
 (:func:`write_image`, whole; ``fmt``, ``bytes`` of the file),
 ``png.filter`` (``bytes_in``, ``bytes_out``, ``native`` 1 or 0),
-``png.deflate`` (``bytes_in``, ``bytes_out``, ``threads``) and
+``png.deflate`` (``bytes_in``, ``bytes_out``, ``threads``, ``stripes``) and
 ``file.write`` (``bytes``). ``image.write``'s time outside its children
 is the host's format pass, the CRC and the join.
 """
@@ -28,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .native import deflate_threads, png_filter_adaptive, zlib_compress_parallel
+from .native import deflate_stripes, deflate_threads, png_filter_adaptive, zlib_compress_parallel
 from .profiling import span
 
 
@@ -144,7 +144,8 @@ def _deflate(filtered: bytes) -> bytes:
     with span("png.deflate", bytes_in=len(filtered)) as sp:
         out = zlib_compress_parallel(filtered, 6)
         if sp:
-            sp.set(bytes_out=len(out), threads=deflate_threads(len(filtered)))
+            n = len(filtered)
+            sp.set(bytes_out=len(out), threads=deflate_threads(n), stripes=deflate_stripes(n))
     return out
 
 

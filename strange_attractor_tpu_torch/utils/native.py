@@ -50,6 +50,8 @@ def _build() -> Optional[ctypes.CDLL]:
         lib = ctypes.CDLL(str(so))
     except OSError:
         return None
+    lib.fastdeflate_stripes.restype = ctypes.c_long
+    lib.fastdeflate_stripes.argtypes = [ctypes.c_long]
     lib.fastdeflate_zlib.restype = ctypes.c_long
     lib.fastdeflate_zlib.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p, ctypes.c_long]
@@ -86,18 +88,32 @@ def deflate_threads(n: int, threads: Optional[int] = None) -> int:
     return threads
 
 
+def deflate_stripes(n: int, threads: Optional[int] = None) -> int:
+    """The stripes :func:`zlib_compress_parallel` cuts ``n`` bytes into:
+    one a 256 KB of input (the last takes the rest), 1 where it takes the
+    stdlib's ``zlib.compress``."""
+    if deflate_threads(n, threads) < 2:
+        return 1
+    return get_lib().fastdeflate_stripes(n)
+
+
 def zlib_compress_parallel(data: bytes, level: int = 6, threads: Optional[int] = None) -> bytes:
     """A zlib stream of ``data`` deflated on up to 16 threads; the stdlib's
     ``zlib.compress`` for payloads under 2 MB, on one core, or without the
-    library. The stream decompresses with ``zlib.decompress``; above 2 MB
-    its bytes differ from ``zlib.compress``'s, since each >= 1 MB stripe is
-    deflated on its own."""
+    library. Above 2 MB the payload is cut into 256 KB stripes, each primed
+    with the 32 KB before it and deflated on its own, which the threads
+    take in turn from a shared counter. The stream decompresses with
+    ``zlib.decompress``; its bytes differ from ``zlib.compress``'s but
+    depend on ``data`` alone, never on the thread count."""
     n = len(data)
     threads = deflate_threads(n, threads)
     if threads < 2:
         return zlib.compress(data, level)
     lib = get_lib()
-    cap = n + (n >> 9) + 64 + 16 * threads
+    # deflate's worst case, stored blocks, is under n >> 9 beyond n; each
+    # stripe adds its own stream's slack: a full flush's empty stored block
+    # (5 bytes and a partial byte) and deflateBound's per-stream constant
+    cap = n + (n >> 9) + 64 + 32 * lib.fastdeflate_stripes(n)
     out = ctypes.create_string_buffer(cap)
     written = lib.fastdeflate_zlib(data, n, level, threads, out, cap)
     if written <= 0:

@@ -34,7 +34,7 @@ a thread, on the trace's clock. The spans, by layer:
 - encoder (``utils/export.py``): ``image.write`` (``write_image``;
   ``fmt``, ``bytes`` of the file), ``png.filter`` (``bytes_in``,
   ``bytes_out``, ``native`` 0 or 1), ``png.deflate`` (``bytes_in``,
-  ``bytes_out``, ``threads``), ``file.write`` (``bytes``).
+  ``bytes_out``, ``threads``, ``stripes``), ``file.write`` (``bytes``).
 
 The JAX package's ``force_cpu_if_requested`` and
 ``enable_compilation_cache`` are not carried: they work around the TPU

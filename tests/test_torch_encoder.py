@@ -3,15 +3,18 @@
 package's PNG writer, on the CPU.
 
 The native adaptive filter must equal ``_filter_scanlines_numpy`` byte for
-byte (tolerance 0). Parallel deflate cuts a payload over 2 MB into stripes
-deflated on their own, so its bytes differ from ``zlib.compress``'s: PNGs
-are compared by their decompressed (filtered) bytes and decoded pixels,
-never by their compressed bytes. Skipped only where there is no g++.
+byte (tolerance 0). Parallel deflate cuts a payload over 2 MB into 256 KB
+stripes deflated on their own, so its bytes differ from ``zlib.compress``'s:
+PNGs are compared by their decompressed (filtered) bytes and decoded pixels,
+never by their compressed bytes. The parallel stream's bytes are held to
+depend on the payload alone, not on the thread count. Skipped only where
+there is no g++.
 """
 
 import shutil
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +24,12 @@ from strange_attractor_tpu_torch.utils import export, native
 from test_export import _decode_png
 
 CASES = [(np.uint8, 3), (np.uint8, 4), (np.uint16, 3), (np.uint16, 4)]
+STRIPE = 1 << 18  # fastdeflate.cpp's stripe of input
+# just over 2 MB (the parallel path's gate), then k stripes exactly, less
+# one byte and plus one: the gate's edge, and a one-byte last stripe
+SIZES = [(2 << 20) + 4097, 8 * STRIPE - 1, 8 * STRIPE, 8 * STRIPE + 1,
+         13 * STRIPE - 1, 13 * STRIPE, 13 * STRIPE + 1]
+HERO = Path(__file__).resolve().parents[1] / "media" / "poisson-saturne-tpu.png"
 
 
 @pytest.fixture(scope="module")
@@ -83,6 +92,53 @@ def test_parallel_deflate_round_trip(lib):
     assert out != zlib.compress(data, 6)  # stitched stripes, not one stream
     small = data[:100_000]
     assert native.zlib_compress_parallel(small, 6, threads=8) == zlib.compress(small, 6)
+
+
+def _payload(n: int) -> bytes:
+    """Scanline-like bytes: a 20,011-byte motif repeated (so matches reach
+    back across stripe boundaries, into the priming) under sparse noise."""
+    rng = np.random.default_rng(n)
+    data = np.resize(rng.integers(0, 8, 20_011, dtype=np.uint8) * 17, n)
+    hits = rng.random(n) < 0.02
+    data[hits] = rng.integers(0, 256, int(hits.sum()), dtype=np.uint8)
+    return data.tobytes()
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("n", SIZES)
+def test_parallel_deflate_round_trip_at_stripe_edges(lib, n, threads):
+    """Every size about a stripe edge, on every thread count, decompresses
+    to itself under the header ``zlib.compress`` writes at level 6; one
+    stripe a 256 KB above the 2 MB gate, the stdlib's stream below it."""
+    data = _payload(n)
+    out = native.zlib_compress_parallel(data, 6, threads=threads)
+    assert zlib.decompress(out) == data
+    assert out[:2] == b"\x78\x9c"
+    parallel = n >= 2 << 20 and threads > 1
+    assert native.deflate_stripes(n, threads) == (-(-n // STRIPE) if parallel else 1)
+    if not parallel:
+        assert out == zlib.compress(data, 6)
+
+
+@pytest.mark.parametrize("n", [8 * STRIPE, 13 * STRIPE + 1, 6_221_880])
+def test_parallel_deflate_bytes_do_not_depend_on_threads(lib, n):
+    data = _payload(n)
+    outs = {native.zlib_compress_parallel(data, 6, threads=t) for t in (2, 3, 8, 16)}
+    assert len(outs) == 1
+    assert zlib.decompress(outs.pop()) == data
+
+
+def test_parallel_deflate_of_the_hero_frame_is_as_small_as_one_stream(lib):
+    """The filtered scanlines of the recorded 10^9 poisson-saturne render
+    (6,221,880 bytes, 24 stripes): primed stripes cost at most 0.5% over
+    one level-6 zlib stream of the same bytes."""
+    image = export.read_png(HERO)
+    filtered = export._filter_scanlines(image, image.shape[0])
+    assert len(filtered) == 6_221_880
+    out = native.zlib_compress_parallel(filtered, 6, threads=8)
+    assert zlib.decompress(out) == filtered
+    assert out[:2] == b"\x78\x9c"
+    assert len(out) <= 1.005 * len(zlib.compress(filtered, 6))
 
 
 @pytest.mark.parametrize("dtype,ch", CASES)

@@ -177,6 +177,7 @@ def test_a_frame_records_every_span_with_its_counts(tmp_path, spans_cleared):
     assert one["png.deflate"].attrs["bytes_in"] == h * (1 + w * 3)
     assert one["png.deflate"].attrs["bytes_out"] == _idat_length(path)
     assert one["png.deflate"].attrs["threads"] == 1  # under 2 MB: the stdlib's deflate
+    assert one["png.deflate"].attrs["stripes"] == 1
     parents = {name: r.parent for name, r in one.items()}
     for child in ("render.seeds", "render.warmup", "render.chunks"):
         assert parents[child] == one["render.launch"].span_id
@@ -190,6 +191,26 @@ def test_a_frame_records_every_span_with_its_counts(tmp_path, spans_cleared):
             p = next(q for q in one.values() if q.span_id == r.parent)
             assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
     assert len({r.span_id for r in one.values()}) == len(one)
+
+
+@pytest.mark.parametrize("h,w,stripes", [(1080, 1920, 24), (540, 960, 1)])
+def test_the_deflate_span_counts_its_stripes(h, w, stripes, monkeypatch, spans_cleared):
+    """``png.deflate`` carries the stripes the deflate was cut into: 24 for
+    a 1920 x 1080 8-bit RGB frame (6,221,880 bytes of scanlines, 256 KB a
+    stripe), 1 for a frame under 2 MB (the stdlib's deflate)."""
+    import shutil
+
+    from strange_attractor_tpu_torch.utils import export, native
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build csrc/fastdeflate.cpp")
+    monkeypatch.setattr(native.os, "cpu_count", lambda: 8)
+    with _profiled():
+        export.png_bytes(np.zeros((h, w, 3), np.uint8))
+    (deflate,) = _by_name(profiling.spans())["png.deflate"]
+    assert deflate.attrs["bytes_in"] == h * (1 + w * 3)
+    assert deflate.attrs["stripes"] == stripes
+    assert deflate.attrs["threads"] == (8 if stripes > 1 else 1)
 
 
 @pytest.mark.parametrize("engine,chunks_per_batch", [("render_sequence_shared", 1),
