@@ -329,8 +329,9 @@ def write_bmp(path, arr: np.ndarray) -> None:
 # ---------------------------------------------------------------- PAM ----
 
 
-def pam_bytes(arr: np.ndarray) -> bytes:
-    """Encode (H, W, 3|4) uint8/uint16 as PAM (P7, reference: main.rs:64-70)."""
+def _pam_parts(arr: np.ndarray) -> tuple:
+    """A PAM's header and its samples as a flat view of ``arr``'s buffer:
+    an 8-bit image is not copied, a 16-bit one once, to big-endian."""
     h, w, ch = arr.shape
     maxval = 255 if arr.dtype == np.uint8 else 65535
     tupltype = "RGB_ALPHA" if ch == 4 else "RGB"
@@ -338,13 +339,26 @@ def pam_bytes(arr: np.ndarray) -> bytes:
         f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {ch}\nMAXVAL {maxval}\n"
         f"TUPLTYPE {tupltype}\nENDHDR\n"
     ).encode()
-    data = arr.tobytes() if arr.dtype == np.uint8 else arr.astype(">u2").tobytes()
+    data = np.ascontiguousarray(arr if arr.dtype == np.uint8 else arr.astype(">u2"))
+    return header, memoryview(data).cast("B")
+
+
+def pam_bytes(arr: np.ndarray) -> bytes:
+    """Encode (H, W, 3|4) uint8/uint16 as PAM (P7, reference: main.rs:64-70)."""
+    header, data = _pam_parts(arr)
     return header + data
 
 
 def write_pam(path, arr: np.ndarray) -> None:
-    """Write :func:`pam_bytes` of ``arr`` to ``path``."""
-    Path(path).write_bytes(pam_bytes(arr))
+    """Write :func:`pam_bytes` of ``arr`` to ``path``, header then samples,
+    without joining them."""
+    _write_parts(path, _pam_parts(arr))
+
+
+def _write_parts(path, parts) -> None:
+    with open(path, "wb") as f:
+        for part in parts:
+            f.write(part)
 
 
 _ENCODERS = {"png": png_bytes, "bmp": bmp_bytes, "pam": pam_bytes}
@@ -365,11 +379,12 @@ def write_image(base_path, image: np.ndarray, *, fmt: str = "png", transparent: 
         path = Path(base_path).with_suffix("." + fmt)
         if not silent:
             print("Rendering complete. Writing file.")
-        data = _ENCODERS[fmt](arr)
-        with span("file.write", bytes=len(data)):
-            path.write_bytes(data)
+        parts = _pam_parts(arr) if fmt == "pam" else (_ENCODERS[fmt](arr),)
+        nbytes = sum(len(part) for part in parts)
+        with span("file.write", bytes=nbytes):
+            _write_parts(path, parts)
         if sp:
-            sp.set(bytes=len(data))
+            sp.set(bytes=nbytes)
     if announce:
         print(f"Wrote image to '{path}'.")
     return path

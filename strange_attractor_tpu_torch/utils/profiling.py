@@ -24,12 +24,15 @@ a thread, on the trace's clock. The spans, by layer:
   seed points drawn and copied to the device; ``lanes``),
   ``render.warmup`` (``Stepper.init``; ``steps``), ``render.chunks``
   (``render_seeds``' chunk loop; ``chunks``, ``launches`` counted by the
-  kernel wrappers);
+  kernel wrappers, ``bin`` the bin strategy's value, e.g. ``kernel`` or
+  ``depth-kernel``, ``emit`` kernel A's emission mode, the planes kind:
+  ``packed``, ``depth`` or ``exact``);
 - sequence engine: ``engine.batch`` (one batch of
   ``render_sequence_shared`` or ``render_sequence_batched``; ``frames``,
   ``chunks``);
 - delivery: ``deliver.tonemap`` (kernel T's launches, or the plain
-  chain; ``frames``), ``deliver.copy`` (the device-to-host copy:
+  chain; ``frames``, ``render`` the render kind, ``gas`` or ``depth``),
+  ``deliver.copy`` (the device-to-host copy:
   ``utils.export.to_host`` and ``render._deliver``'s; ``bytes``);
 - encoder (``utils/export.py``): ``image.write`` (``write_image``;
   ``fmt``, ``bytes`` of the file), ``png.filter`` (``bytes_in``,

@@ -51,6 +51,25 @@ def test_writers_write_the_jax_bytes(tmp_path, fmt, dtype, ch):
     assert got == getattr(export, f"{fmt}_bytes")(img)
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("transparent", [False, True])
+def test_write_image_pam_is_pam_bytes(tmp_path, dtype, transparent):
+    """``write_image`` writes a PAM's header and samples one after the
+    other; the file is ``pam_bytes`` of the converted image, also where
+    dropping alpha leaves a strided view."""
+    img = _image(dtype, 4)
+    path = export.write_image(tmp_path / "frame", img, fmt="pam", transparent=transparent,
+                              announce=False)
+    assert path.read_bytes() == export.pam_bytes(export.convert_format(img, transparent, False))
+
+
+def test_pam_samples_of_an_8bit_image_are_its_own_buffer():
+    img = _image(np.uint8, 3)
+    header, data = export._pam_parts(img)
+    assert data.obj is img
+    assert header + data == export.pam_bytes(img)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("preset", ["poisson-saturne", "solar-sail", "thomas"])
 def test_rotate_point_matches_jax(preset, dtype):

@@ -165,8 +165,9 @@ def test_a_frame_records_every_span_with_its_counts(tmp_path, spans_cleared):
     assert one["render.seeds"].attrs == {"lanes": lanes}
     assert one["render.warmup"].attrs == {"steps": 16}
     # the plain twins on the CPU count no launch
-    assert one["render.chunks"].attrs == {"chunks": nchunks, "launches": 0}
-    assert one["deliver.tonemap"].attrs == {"frames": 1}
+    assert one["render.chunks"].attrs == {"chunks": nchunks, "launches": 0, "bin": "kernel",
+                                          "emit": "packed"}
+    assert one["deliver.tonemap"].attrs == {"frames": 1, "render": "gas"}
     assert one["deliver.copy"].attrs == {"bytes": h * w * 3}
     size = path.stat().st_size
     assert one["image.write"].attrs == {"fmt": "png", "bytes": size}
@@ -191,6 +192,30 @@ def test_a_frame_records_every_span_with_its_counts(tmp_path, spans_cleared):
             p = next(q for q in one.values() if q.span_id == r.parent)
             assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
     assert len({r.span_id for r in one.values()}) == len(one)
+
+
+@pytest.mark.parametrize("flags,kind,strategy,emission", [
+    ([], "gas", "kernel", "packed"),
+    (["--depth"], "depth", "depth-kernel", "depth"),
+    (["--depth", "--bin-strategy", "depth"], "depth", "depth", "depth"),
+    (["--bin-strategy", "exact16-kernel"], "gas", "exact16-kernel", "exact"),
+])
+def test_the_spans_name_the_render_kind_the_bin_and_the_emission(flags, kind, strategy,
+                                                                 emission, spans_cleared):
+    """``render.chunks`` names the bin strategy the render ran and kernel
+    A's emission mode, ``deliver.tonemap`` the render kind, so a trace tells
+    a depth frame from a gas one."""
+    parser = cli.build_parser()
+    args = parser.parse_args(TINY + flags)
+    cli._validate(args, parser)
+    config = cli.config_from_args(args).replace(warmup=16)
+    with _profiled():
+        state = rmod.render(config, None, torch.Generator().manual_seed(3), device="cpu")
+        rmod.colorize_convert_fetch(config, state, transparent=False, eight_bit=True)
+    got = _by_name(profiling.spans())
+    (chunks,) = got["render.chunks"]
+    assert (chunks.attrs["bin"], chunks.attrs["emit"]) == (strategy, emission)
+    assert [t.attrs for t in got["deliver.tonemap"]] == [{"frames": 1, "render": kind}]
 
 
 @pytest.mark.parametrize("h,w,stripes", [(1080, 1920, 24), (540, 960, 1)])
@@ -238,7 +263,8 @@ def test_a_sequence_batch_records_its_engine_spans(engine, chunks_per_batch, spa
         assert len(got["render.launch"]) == 3
         assert all(r.parent in tonemaps for r in got["render.launch"])
     ids = [b.span_id for b in batches]
-    assert [t.attrs for t in got["deliver.tonemap"]] == [{"frames": 2}, {"frames": 1}]
+    assert [t.attrs for t in got["deliver.tonemap"]] == [{"frames": 2, "render": "gas"},
+                                                         {"frames": 1, "render": "gas"}]
     assert [c.attrs for c in got["deliver.copy"]] == [
         {"bytes": 2 * frames[0].nbytes}, {"bytes": frames[0].nbytes}]
     assert [r.parent for r in got["deliver.copy"]] == ids
