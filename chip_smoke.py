@@ -208,6 +208,23 @@ all passed):
     delivery (one reduction, one pass). Every delivery of phases 4, 8, 12,
     15, 20, 26, 29 and 30 goes through kernel T, its launches counted (two
     a frame in phase 12).
+33. kernel F (csrc/png_filter.cu, the adaptive PNG scanline filter at write
+    time) on the 10^9 hero frame (1920x1080) and a 10^9 solar-sail frame
+    (1800x2000), in all four layouts (8- and 16-bit, RGB and RGBA): bit for
+    bit against its plain twin on the card, against
+    utils.export._filter_scanlines_numpy and against the host's native
+    filter; each delivered image (colorize_convert_fetch) written as a PNG
+    through the card path (one launch, the record used) with the sha256 of
+    the same image's PNG through the host filter; a 4-frame shared rotation
+    written by the CLI's encoder threads, every frame filtered on the card
+    and its file's sha256 the host path's; the same rotation written as PAMs,
+    which launch nothing and drop every record, the device bytes the
+    records held back to where they were; the rotation again under a budget
+    of one batch's bytes, where only the last batch keeps its records, so
+    two of four PNGs are filtered on the card and all four files' sha256
+    are the host path's; then kernel F's ms against its
+    bound and its plain twin's, the card path's whole ms (launch, kernel and
+    the copy into pinned memory) and the host's native filter's, by layout.
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -229,7 +246,9 @@ certification seconds and chunk times, phase 32's images compared and
 times, and each phase's seconds. The kernel A
 and bin_packed rows carry the 4K frame's launches (``launches_4k_1e9``);
 the ``tonemap`` row counts kernel T's two wrappers' launches in phase 4's
-first frame, and carries the other modes and the 4K canvas of phase 32.
+first frame, and carries the other modes and the 4K canvas of phase 32;
+the ``png_filter`` row is phase 33's hero frame in 8-bit RGB, with the other
+layouts, the solar-sail frame and the rotation's launches beside it.
 
 It imports no JAX. It needs one card and exits non-zero without one.
 """
@@ -634,7 +653,7 @@ def _counters() -> dict:
     counter attribute). Kernel A's wrapper also counts the launches of its
     float64 and of its gated instantiations, kernel P's those on a float64
     stream."""
-    from strange_attractor_tpu_torch.ops import colorize, emit, kernel_binning as kb
+    from strange_attractor_tpu_torch.ops import colorize, emit, kernel_binning as kb, png_filter
 
     return {"map_emit": (emit.map_emit, "launches"),
             "map_emit_f64": (emit.map_emit, "f64_launches"),
@@ -646,7 +665,8 @@ def _counters() -> dict:
             "bin_exact": (kb.bin_chunk_kernel_exact, "launches"),
             "bin_exact16": (kb.bin_chunk_kernel_exact16, "launches"),
             "tonemap_stats": (colorize._tonemap_stats, "launches"),
-            "tonemap": (colorize.tonemap, "launches")}
+            "tonemap": (colorize.tonemap, "launches"),
+            "png_filter": (png_filter.png_filter, "launches")}
 
 
 # kernel T's two wrappers: every delivery on the card launches both
@@ -2754,6 +2774,198 @@ def _tonemap_timing(sat, dev, w: int, h: int) -> dict:
     return rows
 
 
+PNG_LAYOUTS = ((False, True), (True, True), (False, False), (True, False))
+
+
+def _sha256(path: Path) -> str:
+    import hashlib
+
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def _host_filter_rows(host: np.ndarray):
+    """(rows, bpp) of a host image's PNG scanlines (16-bit big-endian)."""
+    from strange_attractor_tpu_torch.utils import export
+
+    raw = np.ascontiguousarray(export._png_geometry(host)[4])
+    return raw.reshape(host.shape[0], -1).view(np.uint8), host.shape[-1] * host.itemsize
+
+
+def _png_filter_frame(sat, dev, cfg, out_dir: Path, tag: str, card: str) -> dict:
+    """Kernel F on one 10^9 frame of ``cfg`` in the four layouts (see
+    phase 33 in the module docstring); returns each layout's times."""
+    from strange_attractor_tpu_torch.ops import png_filter as pf
+    from strange_attractor_tpu_torch.ops.colorize import tonemap
+    from strange_attractor_tpu_torch.utils import export, native
+
+    state = sat.render(cfg, device=dev)
+    out = {}
+    for transparent, eight_bit in PNG_LAYOUTS:
+        name = f"{'rgba' if transparent else 'rgb'}{8 if eight_bit else 16}"
+        img = tonemap(cfg, state, transparent=transparent, eight_bit=eight_bit)
+        before = pf.png_filter.launches
+        got = pf.png_filter(img)
+        if pf.png_filter.launches != before + 1:
+            raise AssertionError(f"[33] {tag} {name}: png_filter did not launch kernel F")
+        _check_equal(f"[33] {tag} {name} kernel F", got, pf.png_filter_plain(img))
+        host = img.cpu().numpy()
+        rows, bpp = _host_filter_rows(host)
+        want = export._filter_scanlines_numpy(rows, bpp)
+        kernel_bytes = got.cpu().numpy().tobytes()
+        if kernel_bytes != want:
+            raise AssertionError(f"[33] {tag} {name}: kernel F differs from "
+                                 f"_filter_scanlines_numpy")
+        if native.png_filter_adaptive(rows, bpp) not in (None, want):
+            raise AssertionError(f"[33] {tag} {name}: the native filter differs")
+        picks = np.bincount(got[:, 0].cpu().numpy(), minlength=5).tolist()
+        # the delivery's array, written through the card and through the host
+        image = sat.colorize_convert_fetch(cfg, state, transparent=transparent,
+                                           eight_bit=eight_bit)
+        before = pf.png_filter.launches
+        via_card = export.write_image(out_dir / f"{tag}-{name}-card", image,
+                                      transparent=transparent, eight_bit=eight_bit, announce=False)
+        if pf.png_filter.launches != before + 1 or export._take_device_copy(image) is not None:
+            raise AssertionError(f"[33] {tag} {name}: the PNG did not take the card path")
+        via_host = export.write_image(out_dir / f"{tag}-{name}-host", np.array(image),
+                                      transparent=transparent, eight_bit=eight_bit, announce=False)
+        if pf.png_filter.launches != before + 1:
+            raise AssertionError(f"[33] {tag} {name}: a fresh array took the card path")
+        sha = _sha256(via_card)
+        if sha != _sha256(via_host):
+            raise AssertionError(f"[33] {tag} {name}: the card path's PNG differs from the "
+                                 f"host filter's")
+        nbytes = host.nbytes + len(want)
+        row = {"ms": _time_ms(lambda: pf.png_filter(img), 50),
+               "plain_ms": _time_ms(lambda: pf.png_filter_plain(img), 5), "bytes": nbytes,
+               "bound_ms": nbytes / PEAK_BYTES * 1e3, "picks": picks, "sha256": sha,
+               "library_ms": None, "library_note": "no single PyTorch call filters scanlines"}
+        row["card_path_ms"] = _wall_ms(lambda: export._filter_on_device(img), 20)
+        row["host_native_ms"] = _wall_ms(lambda: native.png_filter_adaptive(rows, bpp), 5)
+        print(f"[33] {tag} {cfg.width}x{cfg.height} {name}: kernel F bit-identical to its twin, "
+              f"to _filter_scanlines_numpy and to the native filter (filter types {picks}); "
+              f"the card path's PNG sha256 {sha[:16]} = the host filter's; kernel "
+              f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB; "
+              f"bytes), plain twin {row['plain_ms']:.3f} ms, card path {row['card_path_ms']:.3f} ms, host native filter "
+              f"{row['host_native_ms']:.3f} ms on {card}")
+        out[name] = row
+    return out
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Median host wall ms of ``fn`` (which ends synchronized) over ``reps``
+    calls after one discarded."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_png_filter(sat, dev, out_dir: Path, card: str) -> dict:
+    """Kernel F (phase 33 in the module docstring)."""
+    from strange_attractor_tpu_torch import cli
+    from strange_attractor_tpu_torch.ops import png_filter as pf
+    from strange_attractor_tpu_torch.utils import export
+
+    out = {"hero": _png_filter_frame(sat, dev, _flagship(sat, 1_000_000_000), out_dir, "hero",
+                                     card),
+           "solar_sail": _png_filter_frame(sat, dev, _solar_sail(sat, 1_000_000_000), out_dir,
+                                           "solar-sail", card)}
+    frames = sat.render_sequence_shared(_flagship(sat, 10_000_000), [0.0, 3.0, 6.0, 9.0],
+                                        frames_per_batch=2, transparent=False, eight_bit=True,
+                                        device=dev)
+    if frames.flags.writeable:
+        raise AssertionError("[33] a sequence delivered from the card is writable")
+    paths = [out_dir / f"rot{f}" for f in range(len(frames))]
+    before = pf.png_filter.launches
+    cli._write_frames(zip(frames, paths), lambda path, image: export.write_image(
+        path, image, transparent=False, eight_bit=True, announce=False))
+    launches = pf.png_filter.launches - before
+    if launches != len(frames):
+        raise AssertionError(f"[33] rotation: {launches} card filters for {len(frames)} frames")
+    for f, path in enumerate(paths):
+        host = export.write_image(out_dir / f"rot{f}-host", np.array(frames[f]),
+                                  transparent=False, eight_bit=True, announce=False)
+        if _sha256(path.with_suffix(".png")) != _sha256(host):
+            raise AssertionError(f"[33] rotation frame {f}: the card path's PNG differs")
+    print(f"[33] rotation: {len(frames)} frames written on the encoder threads, each filtered "
+          f"on the card ({launches} launches), every file's sha256 the host filter's")
+    out["rotation_launches"] = launches
+    out["rotation_pam"] = _png_filter_pam(sat, dev, out_dir)
+    out["rotation_budget_launches"] = _png_filter_budget(sat, dev, out_dir)
+    return out
+
+
+def _rotation_8bit(sat, dev, angles=(0.0, 3.0, 6.0, 9.0)) -> np.ndarray:
+    return sat.render_sequence_shared(_flagship(sat, 10_000_000), list(angles),
+                                      frames_per_batch=2, transparent=False, eight_bit=True,
+                                      device=dev)
+
+
+def _held_bytes() -> int:
+    from strange_attractor_tpu_torch.utils import export
+
+    return sum(b for _, b in export._HELD.values())
+
+
+def _png_filter_pam(sat, dev, out_dir: Path) -> dict:
+    """A rotation written as PAMs: no launch, every record dropped, the
+    device bytes the records held back to where they were."""
+    from strange_attractor_tpu_torch import cli
+    from strange_attractor_tpu_torch.ops import png_filter as pf
+    from strange_attractor_tpu_torch.utils import export
+
+    before_bytes = _held_bytes()
+    frames = _rotation_8bit(sat, dev)
+    held = _held_bytes() - before_bytes
+    before = pf.png_filter.launches
+    cli._write_frames(zip(frames, [out_dir / f"pam{f}" for f in range(len(frames))]),
+                      lambda path, image: export.write_image(
+                          path, image, fmt="pam", transparent=False, eight_bit=True,
+                          announce=False))
+    if pf.png_filter.launches != before or _held_bytes() != before_bytes or any(
+            export._take_device_copy(frame) is not None for frame in frames):
+        raise AssertionError(f"[33] rotation to PAM: {pf.png_filter.launches - before} "
+                             f"launches, {_held_bytes() - before_bytes} bytes still held")
+    print(f"[33] rotation to PAM: the records held {held} device bytes, all dropped by the "
+          f"writes, no launch")
+    return {"held_bytes": held}
+
+
+def _png_filter_budget(sat, dev, out_dir: Path) -> int:
+    """The rotation under a budget of one batch's bytes: the first batch's
+    records go when the second's come, its frames take the host filter."""
+    from strange_attractor_tpu_torch import cli
+    from strange_attractor_tpu_torch.ops import png_filter as pf
+    from strange_attractor_tpu_torch.utils import export
+
+    cfg = _flagship(sat, 10_000_000)
+    old = export._DEVICE_COPY_BUDGET
+    export._DEVICE_COPY_BUDGET = 2 * cfg.width * cfg.height * 3
+    try:
+        frames = _rotation_8bit(sat, dev)
+        paths = [out_dir / f"budget{f}" for f in range(len(frames))]
+        before = pf.png_filter.launches
+        cli._write_frames(zip(frames, paths), lambda path, image: export.write_image(
+            path, image, transparent=False, eight_bit=True, announce=False))
+        launches = pf.png_filter.launches - before
+    finally:
+        export._DEVICE_COPY_BUDGET = old
+    if launches != 2:
+        raise AssertionError(f"[33] rotation under a one-batch budget: {launches} card "
+                             f"filters, not 2")
+    for f, path in enumerate(paths):
+        host = export.write_image(out_dir / f"budget{f}-host", np.array(frames[f]),
+                                  transparent=False, eight_bit=True, announce=False)
+        if _sha256(path.with_suffix(".png")) != _sha256(host):
+            raise AssertionError(f"[33] rotation under a budget, frame {f}: the PNG differs")
+    print(f"[33] rotation under a one-batch budget: {launches} of {len(frames)} frames "
+          f"filtered on the card, every file's sha256 the host filter's")
+    return launches
+
+
 def phase_tonemap(sat, dev, card: str) -> dict:
     """Kernel T (csrc/tonemap.cu) at 1920x1080 and 3840x2160: every case
     and mode against its plain twin on the card and on the CPU, bit for
@@ -2954,6 +3166,18 @@ def _tonemap_row(s: dict, t: dict) -> dict:
             "images_compared": hd["compared"] + uhd["compared"]}
 
 
+def _png_filter_row(p: dict) -> dict:
+    """Kernel F's ``kernels`` row: the hero frame's 8-bit RGB filter (the
+    stills' layout) with its bound and twin, the other layouts and the
+    solar-sail frame beside it, and the rotation's launches (one a frame)."""
+    hero = p["hero"]
+    return {"name": "png_filter", "route": "cuda", "source": _SOURCE + "png_filter.cu",
+            "replaces": "strange_attractor_tpu_torch/utils/export.py _filter_scanlines (host)",
+            "launches": p["rotation_launches"], "max_abs_err": 0, **hero["rgb8"],
+            "modes": {k: v for k, v in hero.items() if k != "rgb8"},
+            "solar_sail": p["solar_sail"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this check needs an NVIDIA card",
@@ -3008,6 +3232,7 @@ def main() -> int:
         parity = lap("30", phase_reference_parity(sat, dev, Path(tmp), card))
         certified = lap("31", phase_certify(card))
         tonemapped = lap("32", phase_tonemap(sat, dev, card))
+        png_filtered = lap("33", phase_png_filter(sat, dev, Path(tmp), card))
     renders = lap("13", phase_renders(sat, dev, card))
     rk4_renders = lap("16", phase_rk4_renders(sat, dev, card))
     axes_renders = lap("19", phase_axes_renders(sat, dev, card))
@@ -3016,6 +3241,7 @@ def main() -> int:
     kernels = _kernel_rows(a, b, modes, bins, shared, s, runs, seq, renders, rk4, preset_runs,
                            rk4_renders) + _axes_rows(axes, axes_twins, axes_renders, axes_cli)
     kernels.append(_tonemap_row(s, tonemapped))
+    kernels.append(_png_filter_row(png_filtered))
     for row in kernels[:2]:  # map_emit and bin_packed: the 4K frame's launches and check
         row["launches_4k_1e9"] = uhd["launches"][row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], uhd["err"])

@@ -369,8 +369,7 @@ def _sharded_frames(args, config, devices, angles):
     (the JAX CLI's ``_render_one`` over the mesh, cli.py:536-545)."""
     from .parallel import distributed as dist
     from .parallel.mesh import render_sharded
-    from .render import _sequence_base, colorize, frame_generator
-    from .utils.export import to_host
+    from .render import _fetch, _sequence_base, colorize, frame_generator
 
     base = _sequence_base(config)
     for i, angle in enumerate(angles):
@@ -378,7 +377,7 @@ def _sharded_frames(args, config, devices, angles):
         gen = frame_generator(config, i, base)
         state = dist.render_distributed(cfg, gen) if args.distributed else \
             render_sharded(cfg, devices, gen)
-        yield to_host(colorize(cfg, state))
+        yield _fetch(colorize(cfg, state))
 
 
 def _sequence(args, config, fmt: str) -> None:

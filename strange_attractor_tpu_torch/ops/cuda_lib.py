@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # kernels per (compute type, map) pair
 SOURCES = ("map_emit_f64_cyclic.cu", "map_emit_f64.cu", "map_emit_rk4_cyclic.cu",
            "map_emit_rk4.cu", "map_emit.cu", "project_emit.cu", "bin_packed.cu", "bin_depth.cu",
-           "bin_exact.cu", "bin_exact16.cu", "tonemap.cu")
+           "bin_exact.cu", "bin_exact16.cu", "tonemap.cu", "png_filter.cu")
 HEADERS = ("emit_common.cuh", "map_emit.cuh", "bin_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-Xcompiler", "-fPIC")
@@ -94,6 +94,7 @@ ARGTYPES = {
     "sat_tonemap_stats": [_vp, _vp, _vp, _i64, _i32, _vp, _vp],
     "sat_tonemap": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _f32, _f32, _i64, _i32, _i32, _i32, _i32,
                     _vp],
+    "sat_png_filter": [_vp, _i64, _i64, _i32, _i32, _vp],
 }
 
 

@@ -43,9 +43,9 @@ from ..config import BinStrategy, Config
 from ..ops.binning import _inv_mono_u32, _mono_u32, canonical_zero, to_u32_bits, u32
 from ..render import (PROGRESS_EVERY, Stepper, _auto_frames_per_batch, _check_state, _deliver,
                       _draw_base, _host_frames, _planes_to_state, _progressive_nonce,
-                      _same_device, _sequence_base, _state_to_planes, _strategy, frame_generator,
-                      plan_schedule, render_seeds_shared, render_sequence_batched,
-                      seeds_and_key)
+                      _same_device, _sealed, _sequence_base, _state_to_planes, _strategy,
+                      frame_generator, plan_schedule, render_seeds_shared,
+                      render_sequence_batched, seeds_and_key)
 from ..runtime import RenderState, merge, resolve_device
 
 
@@ -396,7 +396,7 @@ def render_sequence_sharded(config: Config, angles_deg: Sequence[float], devices
         for row_states, (lo, hi) in zip(states, slices):
             if lo < hi:
                 _deliver(config, row_states, out[lo:hi], transparent, eight_bit)
-    return out
+    return _sealed(out, devices[0])
 
 
 def _shared_row(config: Config, lanes: _Lanes, lo: int, hi: int, rad, base: int) -> list:

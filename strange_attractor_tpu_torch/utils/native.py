@@ -53,7 +53,7 @@ def _build() -> Optional[ctypes.CDLL]:
     lib.fastdeflate_stripes.restype = ctypes.c_long
     lib.fastdeflate_stripes.argtypes = [ctypes.c_long]
     lib.fastdeflate_zlib.restype = ctypes.c_long
-    lib.fastdeflate_zlib.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+    lib.fastdeflate_zlib.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p, ctypes.c_long]
     lib.fastdeflate_png_filter.restype = ctypes.c_int
     lib.fastdeflate_png_filter.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
@@ -97,25 +97,29 @@ def deflate_stripes(n: int, threads: Optional[int] = None) -> int:
     return get_lib().fastdeflate_stripes(n)
 
 
-def zlib_compress_parallel(data: bytes, level: int = 6, threads: Optional[int] = None) -> bytes:
-    """A zlib stream of ``data`` deflated on up to 16 threads; the stdlib's
-    ``zlib.compress`` for payloads under 2 MB, on one core, or without the
-    library. Above 2 MB the payload is cut into 256 KB stripes, each primed
-    with the 32 KB before it and deflated on its own, which the threads
-    take in turn from a shared counter. The stream decompresses with
-    ``zlib.decompress``; its bytes differ from ``zlib.compress``'s but
-    depend on ``data`` alone, never on the thread count."""
+def zlib_compress_parallel(data, level: int = 6, threads: Optional[int] = None) -> bytes:
+    """A zlib stream of ``data`` (bytes, or a flat C-contiguous uint8
+    array) deflated on up to 16 threads; the stdlib's ``zlib.compress`` for
+    payloads under 2 MB, on one core, or without the library. Above 2 MB
+    the payload is cut into 256 KB stripes, each primed with the 32 KB
+    before it and deflated on its own, which the threads take in turn from
+    a shared counter. The stream decompresses with ``zlib.decompress``; its
+    bytes differ from ``zlib.compress``'s but depend on ``data`` alone,
+    never on the thread count."""
     n = len(data)
     threads = deflate_threads(n, threads)
     if threads < 2:
         return zlib.compress(data, level)
+    import numpy as np
+
     lib = get_lib()
     # deflate's worst case, stored blocks, is under n >> 9 beyond n; each
     # stripe adds its own stream's slack: a full flush's empty stored block
     # (5 bytes and a partial byte) and deflateBound's per-stream constant
     cap = n + (n >> 9) + 64 + 32 * lib.fastdeflate_stripes(n)
     out = ctypes.create_string_buffer(cap)
-    written = lib.fastdeflate_zlib(data, n, level, threads, out, cap)
+    written = lib.fastdeflate_zlib(np.frombuffer(data, np.uint8).ctypes.data, n, level, threads,
+                                   out, cap)
     if written <= 0:
         return zlib.compress(data, level)
     return out.raw[:written]

@@ -36,7 +36,8 @@ a thread, on the trace's clock. The spans, by layer:
   ``utils.export.to_host`` and ``render._deliver``'s; ``bytes``);
 - encoder (``utils/export.py``): ``image.write`` (``write_image``;
   ``fmt``, ``bytes`` of the file), ``png.filter`` (``bytes_in``,
-  ``bytes_out``, ``native`` 0 or 1), ``png.deflate`` (``bytes_in``,
+  ``bytes_out``, ``native`` 0 or 1, ``card`` 1 where kernel F filtered a
+  delivered image's device copy), ``png.deflate`` (``bytes_in``,
   ``bytes_out``, ``threads``, ``stripes``), ``file.write`` (``bytes``).
 
 The JAX package's ``force_cpu_if_requested`` and

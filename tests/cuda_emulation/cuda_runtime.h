@@ -1,10 +1,11 @@
 // CPU emulation of the CUDA subset the tile bin (csrc/bin_tile.cuh), the
-// depth bin (csrc/bin_depth.cu) and kernel A (csrc/map_emit.cuh) use, for
-// tests/test_torch_tile_emulation.py, tests/test_torch_depth_emulation.py and
-// tests/test_torch_map_emulation.py. A block's CUDA threads are fibers of one
-// OS thread, run round-robin: a fiber runs until it waits at a barrier (the
-// block's, or its warp's inside a vote, shuffle or reduction) and the next one
-// takes over, so a run is deterministic and an atomic is a plain update.
+// depth bin (csrc/bin_depth.cu), kernel A (csrc/map_emit.cuh), kernel T
+// (csrc/tonemap.cu) and kernel F (csrc/png_filter.cu) use, for the
+// tests/test_torch_*_emulation.py files. A block's CUDA threads are fibers
+// of one OS thread, run round-robin: a fiber runs until it waits at a barrier
+// (the block's, or its warp's inside a vote, shuffle or reduction) and the
+// next one takes over, so a run is deterministic and an atomic is a plain
+// update.
 // Blocks run one after another, which makes a __shared__ variable a static.
 #pragma once
 #include <setjmp.h>
@@ -164,6 +165,13 @@ inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   return emu::collect<unsigned>(v, [](unsigned long long* s) {
     unsigned r = 0;
     for (int l = 0; l < 32; ++l) r = (unsigned)s[l] > r ? (unsigned)s[l] : r;
+    return r;
+  });
+}
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  return emu::collect<unsigned>(v, [](unsigned long long* s) {
+    unsigned r = 0;
+    for (int l = 0; l < 32; ++l) r += (unsigned)s[l];
     return r;
   });
 }
