@@ -268,6 +268,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bench_torch import roofline
+from bench_torch.trace import union_intervals
+
 LANES, CHUNK = 32768, 128
 W, H = 1920, 1080
 # the sharded flagship's lane shards on the one card (phases 21-25)
@@ -371,8 +374,6 @@ def phase_kernel_a(sat, dev) -> dict:
 # honest bin timing: the planes a render has built after HONEST_WARM chunks,
 # then HONEST_TIMED distinct consecutive chunks binned onto them one by one
 HONEST_WARM, HONEST_TIMED = 100, 20
-# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32 ops/s
-PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # bytes a bin moves: its stream per point, and per touched pixel each
 # plane read once and written once
 STREAM_BYTES = {"packed": 8, "depth": 8, "exact": 12}
@@ -380,13 +381,19 @@ PLANE_BYTES = {"packed": 16, "depth": 8, "exact": 24}
 LIBRARY_NOTE = "no single PyTorch call computes it"
 
 
-def _bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the rate of their type
-    (float32 unless ``peak_ops`` says otherwise)."""
-    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
-    return {"bytes": nbytes, "flops": ops, "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+def _bound(nbytes: float, ops: float, f64: bool = False) -> dict:
+    """The least time the card could take (``bench_torch.roofline.bound_s``
+    and the card's peaks there): the larger of the bytes over the memory
+    rate and the operations over the float32 rate, or with ``f64`` the
+    float64 rate."""
+    return _bound_row(nbytes, 0.0 if f64 else ops, ops if f64 else 0.0)
+
+
+def _bound_row(nbytes: float, f32_ops: float, f64_ops: float = 0.0) -> dict:
+    by_bytes = roofline.bound_s(nbytes) * 1e3
+    bound = roofline.bound_s(nbytes, f32_ops, f64_ops) * 1e3
+    return {"bytes": nbytes, "flops": f32_ops + f64_ops, "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= bound else "operations"}
 
 
 def _solar_sail(sat, iterations: int, **kw):
@@ -411,13 +418,13 @@ def _render_chunks(sat, dev, cfg, bin_fn):
     after its warm-up and HONEST_WARM chunks of kernel A and ``bin_fn``,
     and the streams of the next HONEST_TIMED chunks, made beforehand."""
     from strange_attractor_tpu_torch.ops import emit
-    from strange_attractor_tpu_torch.render import _state_to_planes
+    from strange_attractor_tpu_torch.runtime import state_to_planes
 
     chunk = sat.plan_schedule(cfg)[1]
     kind = cfg.resolved_bin_strategy().planes_kind()
     spec = emit.emit_spec(cfg, cfg.angle)
     pts = _warm_lanes(sat, dev, cfg, spec)
-    planes = _state_to_planes(sat.RenderState.create(cfg, device=dev))
+    planes = state_to_planes(sat.RenderState.create(cfg, device=dev))
     for _ in range(HONEST_WARM):
         planes = bin_fn(*planes, *emit.map_emit(spec, pts, chunk, kind=kind))
     return planes, [emit.map_emit(spec, pts, chunk, kind=kind) for _ in range(HONEST_TIMED)]
@@ -633,14 +640,15 @@ def _deliver(sat, cfg, state, out_base: Path, times: Optional[dict] = None):
     """colorize + 8-bit conversion on the card (kernel T, as
     ``colorize_convert_fetch`` delivers) -> one host copy -> PNG; returns
     (path, host image). ``times`` gets the seconds of each stage."""
+    from strange_attractor_tpu_torch.deliver import fetch
     from strange_attractor_tpu_torch.ops.colorize import tonemap
-    from strange_attractor_tpu_torch.utils.export import to_host, write_image
+    from strange_attractor_tpu_torch.utils.export import write_image
 
     t0 = time.perf_counter()
     image = tonemap(cfg, state, transparent=False, eight_bit=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    host = to_host(image)
+    host = fetch(image)
     t2 = time.perf_counter()
     path = write_image(out_base, host, transparent=False, eight_bit=True)
     if times is not None:
@@ -1152,8 +1160,9 @@ SEQ_ANGLES = (0.0, 45.0, 90.0, 135.0, 180.0, 222.5, 270.0, 315.0)
 
 def phase_sequence_twins(sat, dev) -> None:
     from strange_attractor_tpu_torch.ops import emit
+    from strange_attractor_tpu_torch.deliver import fetch
+    from strange_attractor_tpu_torch.ops.colorize import convert_format_device
     from strange_attractor_tpu_torch.render import frame_generator
-    from strange_attractor_tpu_torch.utils.export import convert_format_device, to_host
 
     B = sat.BinStrategy
     rad = np.radians(SEQ_ANGLES)
@@ -1176,7 +1185,7 @@ def phase_sequence_twins(sat, dev) -> None:
                                  getattr(kern[f], name), w)
                     _check_equal(f"[11] {label} frame {f} {name} (plain twins)",
                                  getattr(plain[f], name), w)
-            want = to_host(convert_format_device(sat.colorize(cfg, single), False, True))
+            want = fetch(convert_format_device(sat.colorize(cfg, single), False, True))
             if not np.array_equal(frames[f], want):
                 raise AssertionError(f"[11] {label}: delivered frame {f} differs from its render")
         print(f"[11] 1e6 shared sequence {label}: {len(rad)} frames bit-identical to render_seeds "
@@ -1196,20 +1205,15 @@ def _idle_share(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
     if not spans:
         return None, wall
-    busy, (lo, hi) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy, lo = busy + hi - lo, start
-        hi = max(hi, end)
-    return (busy + hi - lo) / 1e3, wall
+    return sum(end - start for start, end in union_intervals(spans)) / 1e3, wall
 
 
 def phase_sequence_cell(sat, dev, out_dir: Path, card: str) -> dict:
-    from strange_attractor_tpu_torch.render import _auto_frames_per_batch
+    from strange_attractor_tpu_torch.render import auto_frames_per_batch
     from strange_attractor_tpu_torch.utils.export import write_image
     from strange_attractor_tpu_torch.utils.sequencing import angle_iter
 
@@ -1244,7 +1248,7 @@ def phase_sequence_cell(sat, dev, out_dir: Path, card: str) -> dict:
                                               "launches": launches})
         out[name] = frames
     # the first frame of each shared batch draws the per-frame engine's seeds
-    batch = _auto_frames_per_batch(cfg, cfg.resolved_bin_strategy())
+    batch = auto_frames_per_batch(cfg, cfg.resolved_bin_strategy())
     for f in range(0, len(angles), batch):
         if not np.array_equal(out["shared"][f], out["per-frame"][f]):
             raise AssertionError(f"[12] frame {f} differs between the shared and per-frame "
@@ -1548,9 +1552,6 @@ def phase_rk4_renders(sat, dev, card: str) -> dict:
 
 # Lane reseeding and the float64 compute path (phases 17-20)
 
-# the card's float64 peak outside the tensor cores (NVIDIA H100 SXM data
-# sheet: 33.5 TFLOP/s, half the float32 rate)
-PEAK_OPS_F64 = 33.5e12
 # phase 2's launcher shapes: the ILP kernel (and a ragged tail of its 8-step
 # batches), the 32-lane ring (and a partial 24-step tile), the 16-lane ring
 # on a ragged 1000 lanes at another angle
@@ -2185,7 +2186,8 @@ def phase_sequence_sharded(sat, dev, card: str) -> dict:
     it, equal to their compositions of render_sharded over a row's two
     devices; then each timed again, frames/s."""
     from strange_attractor_tpu_torch.parallel import mesh
-    from strange_attractor_tpu_torch.render import _deliver, _host_frames, frame_generator
+    from strange_attractor_tpu_torch.deliver import deliver_batch, host_frames
+    from strange_attractor_tpu_torch.render import frame_generator
 
     cfg = _flagship(sat, 10**7).replace(silent=True)
     angles, devs = list(SEQ_ANGLES), [dev] * 4
@@ -2203,8 +2205,8 @@ def phase_sequence_sharded(sat, dev, card: str) -> dict:
                                       frame_generator(cfg, i if orbit == "per-frame"
                                                       else i - i % 4))
                   for i in range(len(angles))]
-        want = _host_frames(cfg, len(angles), False, True)
-        _deliver(cfg, states, want, False, True)
+        want = host_frames(cfg, len(angles), False, True)
+        deliver_batch(cfg, states, want, False, True)
         if not np.array_equal(frames, want):
             raise AssertionError(f"[25] {orbit}: frames differ from their composition")
         seconds = [_timed(run) for _ in range(2)]
@@ -2591,12 +2593,7 @@ def _tonemap_bound(npix: int, in_bytes: int, out_bytes: int, kind: str) -> dict:
     """Kernel T's bound for one frame: each plane it reads once, the image
     written once, and its operations at the float32 and float64 rates."""
     f32_ops, f64_ops = (n * npix for n in TONEMAP_OPS[kind])
-    row = _bound(npix * (in_bytes + out_bytes), f32_ops)
-    by_ops = (f32_ops / PEAK_OPS + f64_ops / PEAK_OPS_F64) * 1e3
-    row.update(flops=f32_ops + f64_ops, f64_flops=f64_ops)
-    if by_ops > row["bound_ms"]:
-        row.update(bound_ms=by_ops, bound_by="operations")
-    return row
+    return {**_bound_row(npix * (in_bytes + out_bytes), f32_ops, f64_ops), "f64_flops": f64_ops}
 
 
 def _tonemap_cases(sat, dev, w: int, h: int) -> list:
@@ -2706,8 +2703,8 @@ def _tonemap_canvas(sat, dev, w: int, h: int) -> tuple:
     the reduction's stats against the plain chain's on both. Returns the
     number of images compared and the largest channel difference seen."""
     from strange_attractor_tpu_torch.ops.colorize import (_tonemap_stats, colorize_planes,
-                                                          state_planes, tonemap)
-    from strange_attractor_tpu_torch.utils.export import convert_format_device
+                                                          convert_format_device, state_planes,
+                                                          tonemap)
 
     base = _flagship(sat, TONEMAP_ITERS).replace(width=w, height=h)
     compared, err = 0, 0.0
@@ -2743,8 +2740,8 @@ def _tonemap_timing(sat, dev, w: int, h: int) -> dict:
     to 8-bit RGB; each with its bound. Then kernel T's launches for one
     ``colorize_convert_fetch``, counted."""
     from strange_attractor_tpu_torch.ops.colorize import (_tonemap_stats, colorize_planes,
-                                                          state_planes, tonemap)
-    from strange_attractor_tpu_torch.utils.export import convert_format_device
+                                                          convert_format_device, state_planes,
+                                                          tonemap)
 
     npix = w * h
     flag = _flagship(sat, TONEMAP_ITERS).replace(width=w, height=h)
@@ -2794,6 +2791,7 @@ def _host_filter_rows(host: np.ndarray):
 def _png_filter_frame(sat, dev, cfg, out_dir: Path, tag: str, card: str) -> dict:
     """Kernel F on one 10^9 frame of ``cfg`` in the four layouts (see
     phase 33 in the module docstring); returns each layout's times."""
+    from strange_attractor_tpu_torch import deliver
     from strange_attractor_tpu_torch.ops import png_filter as pf
     from strange_attractor_tpu_torch.ops.colorize import tonemap
     from strange_attractor_tpu_torch.utils import export, native
@@ -2824,7 +2822,7 @@ def _png_filter_frame(sat, dev, cfg, out_dir: Path, tag: str, card: str) -> dict
         before = pf.png_filter.launches
         via_card = export.write_image(out_dir / f"{tag}-{name}-card", image,
                                       transparent=transparent, eight_bit=eight_bit, announce=False)
-        if pf.png_filter.launches != before + 1 or export._take_device_copy(image) is not None:
+        if pf.png_filter.launches != before + 1 or deliver.take_device_copy(image) is not None:
             raise AssertionError(f"[33] {tag} {name}: the PNG did not take the card path")
         via_host = export.write_image(out_dir / f"{tag}-{name}-host", np.array(image),
                                       transparent=transparent, eight_bit=eight_bit, announce=False)
@@ -2837,9 +2835,9 @@ def _png_filter_frame(sat, dev, cfg, out_dir: Path, tag: str, card: str) -> dict
         nbytes = host.nbytes + len(want)
         row = {"ms": _time_ms(lambda: pf.png_filter(img), 50),
                "plain_ms": _time_ms(lambda: pf.png_filter_plain(img), 5), "bytes": nbytes,
-               "bound_ms": nbytes / PEAK_BYTES * 1e3, "picks": picks, "sha256": sha,
+               "bound_ms": roofline.bound_s(nbytes) * 1e3, "picks": picks, "sha256": sha,
                "library_ms": None, "library_note": "no single PyTorch call filters scanlines"}
-        row["card_path_ms"] = _wall_ms(lambda: export._filter_on_device(img), 20)
+        row["card_path_ms"] = _wall_ms(lambda: deliver.filter_on_device(img), 20)
         row["host_native_ms"] = _wall_ms(lambda: native.png_filter_adaptive(rows, bpp), 5)
         print(f"[33] {tag} {cfg.width}x{cfg.height} {name}: kernel F bit-identical to its twin, "
               f"to _filter_scanlines_numpy and to the native filter (filter types {picks}); "
@@ -2904,31 +2902,25 @@ def _rotation_8bit(sat, dev, angles=(0.0, 3.0, 6.0, 9.0)) -> np.ndarray:
                                       device=dev)
 
 
-def _held_bytes() -> int:
-    from strange_attractor_tpu_torch.utils import export
-
-    return sum(b for _, b in export._HELD.values())
-
-
 def _png_filter_pam(sat, dev, out_dir: Path) -> dict:
     """A rotation written as PAMs: no launch, every record dropped, the
     device bytes the records held back to where they were."""
-    from strange_attractor_tpu_torch import cli
+    from strange_attractor_tpu_torch import cli, deliver
     from strange_attractor_tpu_torch.ops import png_filter as pf
     from strange_attractor_tpu_torch.utils import export
 
-    before_bytes = _held_bytes()
+    before_bytes = deliver.held_bytes()
     frames = _rotation_8bit(sat, dev)
-    held = _held_bytes() - before_bytes
+    held = deliver.held_bytes() - before_bytes
     before = pf.png_filter.launches
     cli._write_frames(zip(frames, [out_dir / f"pam{f}" for f in range(len(frames))]),
                       lambda path, image: export.write_image(
                           path, image, fmt="pam", transparent=False, eight_bit=True,
                           announce=False))
-    if pf.png_filter.launches != before or _held_bytes() != before_bytes or any(
-            export._take_device_copy(frame) is not None for frame in frames):
+    if pf.png_filter.launches != before or deliver.held_bytes() != before_bytes or any(
+            deliver.take_device_copy(frame) is not None for frame in frames):
         raise AssertionError(f"[33] rotation to PAM: {pf.png_filter.launches - before} "
-                             f"launches, {_held_bytes() - before_bytes} bytes still held")
+                             f"launches, {deliver.held_bytes() - before_bytes} bytes still held")
     print(f"[33] rotation to PAM: the records held {held} device bytes, all dropped by the "
           f"writes, no launch")
     return {"held_bytes": held}
@@ -2937,13 +2929,13 @@ def _png_filter_pam(sat, dev, out_dir: Path) -> dict:
 def _png_filter_budget(sat, dev, out_dir: Path) -> int:
     """The rotation under a budget of one batch's bytes: the first batch's
     records go when the second's come, its frames take the host filter."""
-    from strange_attractor_tpu_torch import cli
+    from strange_attractor_tpu_torch import cli, deliver
     from strange_attractor_tpu_torch.ops import png_filter as pf
     from strange_attractor_tpu_torch.utils import export
 
     cfg = _flagship(sat, 10_000_000)
-    old = export._DEVICE_COPY_BUDGET
-    export._DEVICE_COPY_BUDGET = 2 * cfg.width * cfg.height * 3
+    old = deliver.DEVICE_BUDGET
+    deliver.DEVICE_BUDGET = 2 * cfg.width * cfg.height * 3
     try:
         frames = _rotation_8bit(sat, dev)
         paths = [out_dir / f"budget{f}" for f in range(len(frames))]
@@ -2952,7 +2944,7 @@ def _png_filter_budget(sat, dev, out_dir: Path) -> int:
             path, image, transparent=False, eight_bit=True, announce=False))
         launches = pf.png_filter.launches - before
     finally:
-        export._DEVICE_COPY_BUDGET = old
+        deliver.DEVICE_BUDGET = old
     if launches != 2:
         raise AssertionError(f"[33] rotation under a one-batch budget: {launches} card "
                              f"filters, not 2")
@@ -3046,7 +3038,7 @@ def _axes_bound(kind: str, lanes: int, steps: int, f64: bool = False, gated: boo
     if gated:
         ops += GATE_OPS * points + GATE_LANE_OPS * lanes
         nbytes += GATE_LANE_BYTES * lanes
-    return _bound(nbytes, ops, PEAK_OPS_F64 if f64 else PEAK_OPS)
+    return _bound(nbytes, ops, f64)
 
 
 def _axes_rows(axes, axes_twins, axes_renders, axes_cli) -> list:
@@ -3084,7 +3076,7 @@ def _axes_rows(axes, axes_twins, axes_renders, axes_cli) -> list:
         "replaces": "strange_attractor_tpu/render.py:246",
         "launches": axes_twins["f64 shared"]["project_emit_f64"], "max_abs_err": axes["err"],
         "ms": proj["f64"]["ms"], "plain_ms": proj["f64"]["plain_ms"],
-        **_bound(40 * points, EMIT_OPS["project"] * points, PEAK_OPS_F64),
+        **_bound(40 * points, EMIT_OPS["project"] * points, f64=True),
         "ops_peak": "FP64 33.5 TFLOP/s", "launches_per_1e9": None, **no_library,
     }, {
         "name": "project_emit_gated", "route": "cuda", "source": _SOURCE + "project_emit.cu",

@@ -104,7 +104,7 @@ def _ptxas(cuda_lib) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for src in cuda_lib.SOURCES:
             t0 = time.perf_counter()
-            built = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+            built = subprocess.run([cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                                     "-o", str(Path(tmp) / "k.o"), str(cuda_lib.CSRC / src)],
                                    capture_output=True, text=True, check=True)
             text = built.stdout + built.stderr

@@ -369,15 +369,16 @@ def _sharded_frames(args, config, devices, angles):
     (the JAX CLI's ``_render_one`` over the mesh, cli.py:536-545)."""
     from .parallel import distributed as dist
     from .parallel.mesh import render_sharded
-    from .render import _fetch, _sequence_base, colorize, frame_generator
+    from .deliver import fetch
+    from .render import colorize, frame_generator, sequence_base
 
-    base = _sequence_base(config)
+    base = sequence_base(config)
     for i, angle in enumerate(angles):
         cfg = config.replace(angle=float(np.radians(angle)))
         gen = frame_generator(config, i, base)
         state = dist.render_distributed(cfg, gen) if args.distributed else \
             render_sharded(cfg, devices, gen)
-        yield _fetch(colorize(cfg, state))
+        yield fetch(colorize(cfg, state))
 
 
 def _sequence(args, config, fmt: str) -> None:
@@ -529,7 +530,7 @@ def doctor(device="cuda") -> int:
     from .oracle import oracle_render
     from .render import colorize, plan_schedule, render, render_seeds, seed_generator, \
         seeds_and_key
-    from .utils.export import to_host
+    from .deliver import fetch
     from .utils.native import encoder
     from .utils.profiling import RenderProfile, sync
 
@@ -550,7 +551,7 @@ def doctor(device="cuda") -> int:
         from .ops import cuda_lib
 
         try:
-            print(f"nvcc: {cuda_lib._nvcc()}")  # noqa: SLF001
+            print(f"nvcc: {cuda_lib.nvcc()}")
             cuda_lib.library()
         except (RuntimeError, OSError) as e:
             return problem(f"the CUDA kernels did not build or load: {e}")
@@ -587,7 +588,7 @@ def doctor(device="cuda") -> int:
         state = render(bench, device=device)
         sync(state.count)
     with prof.phase("colorize"):
-        to_host(colorize(bench, state))
+        fetch(colorize(bench, state))
     print(f"throughput: {prof.summary()}")
     print("doctor: OK" if ok else "doctor: PROBLEMS FOUND")
     return 0 if ok else 1

@@ -46,7 +46,7 @@ def to_u32_bits(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
-def _mono_u32(z: torch.Tensor) -> torch.Tensor:
+def mono_u32(z: torch.Tensor) -> torch.Tensor:
     """Monotone f32 -> uint32 map (int64 values): negative floats flip all
     bits, positive floats flip the sign bit. Preserves the total order of
     non-NaN floats."""
@@ -55,8 +55,8 @@ def _mono_u32(z: torch.Tensor) -> torch.Tensor:
     return torch.where(neg, u ^ _U32, u | 0x80000000)
 
 
-def _inv_mono_u32(mono: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`_mono_u32`: int64 u32 values -> float32."""
+def inv_mono_u32(mono: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`mono_u32`: int64 u32 values -> float32."""
     neg = mono < 0x80000000
     bits = torch.where(neg, mono ^ _U32, mono & 0x7FFFFFFF)
     return to_u32_bits(bits).view(torch.float32)
@@ -73,7 +73,7 @@ def pack_zv(z: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     answer on the CPU, pinned in tests). The int cast here only ever sees
     finite values in [0, 4096).
     """
-    d = (_mono_u32(z) - _MONO_NEG1) & _U32
+    d = (mono_u32(z) - _MONO_NEG1) & _U32
     q = torch.clamp(torch.nan_to_num(val, nan=0.0), 0.0, _VAL_MAX)
     q = (q * _VAL_SCALE).to(torch.int64)
     packed = (d & _ZKEY_MASK) | q
@@ -88,7 +88,7 @@ def unpack_zv(packed: torch.Tensor):
     p = u32(packed)
     val = (p & _VAL_MASK).to(torch.float32) / _VAL_SCALE
     mono = ((p & _ZKEY_MASK) + _MONO_NEG1) & _U32
-    return _inv_mono_u32(mono), val
+    return inv_mono_u32(mono), val
 
 
 def canonical_zero(z: torch.Tensor) -> torch.Tensor:
@@ -174,9 +174,9 @@ def bin_chunk_depth(zbuf, flat, z):
     of :func:`ops.kernel_binning.bin_chunk_kernel_depth`.
     """
     keep = _in_bounds(flat, zbuf.shape[0])
-    zm = _mono_u32(canonical_zero(z[keep]))
-    best = _mono_u32(zbuf).scatter_reduce(0, flat[keep].to(torch.int64), zm, reduce="amax")
-    return (_inv_mono_u32(best),)
+    zm = mono_u32(canonical_zero(z[keep]))
+    best = mono_u32(zbuf).scatter_reduce(0, flat[keep].to(torch.int64), zm, reduce="amax")
+    return (inv_mono_u32(best),)
 
 
 # largest 31-bit stream index: a chunk holds fewer than 2^31 points
@@ -210,11 +210,11 @@ def bin_chunk_exact(count, steps, zbuf, flat, z, val):
     if f.numel() == 0:
         return count, steps, zbuf
     idx = torch.arange(flat.shape[0], device=flat.device)[keep]
-    key = (_mono_u32(canonical_zero(z[keep])) << 31) | (_IDX - idx)
+    key = (mono_u32(canonical_zero(z[keep])) << 31) | (_IDX - idx)
     best = torch.full((npix,), -1, dtype=torch.int64, device=flat.device)
     best = best.scatter_reduce(0, f, key, reduce="amax")
     hit = best >= 0
-    z_new = _inv_mono_u32(torch.clamp(best, min=0) >> 31)
+    z_new = inv_mono_u32(torch.clamp(best, min=0) >> 31)
     take = hit & (z_new > zbuf)
     winner = torch.where(hit, _IDX - (best & _IDX), 0)
     return (count, torch.where(take, val[winner], steps), torch.where(take, z_new, zbuf))
@@ -244,7 +244,7 @@ def bin_chunk_exact16(count, steps, zbuf, flat, z, val, ties: str = "value"):
     count = _add_hits(count, flat[keep].to(torch.int64))
     z = canonical_zero(z.to(torch.float32))
     live = keep & (z > -1.0)
-    sk = ~(_mono_u32(z[live]) >> 16) & 0xFFFF
+    sk = ~(mono_u32(z[live]) >> 16) & 0xFFFF
     v16 = f16_bits(val[live])
     if ties == "value":
         key, shift = (sk << 16) | v16, 16
@@ -253,7 +253,7 @@ def bin_chunk_exact16(count, steps, zbuf, flat, z, val, ties: str = "value"):
         key, shift = (sk << 47) | (idx << 16) | v16, 47
     best = torch.full((npix,), _NO_KEY, dtype=torch.int64, device=flat.device)
     best = best.scatter_reduce(0, flat[live].to(torch.int64), key, reduce="amin")
-    z_q = _inv_mono_u32((~(best >> shift) & 0xFFFF) << 16)
+    z_q = inv_mono_u32((~(best >> shift) & 0xFFFF) << 16)
     take = (best != _NO_KEY) & (z_q > zbuf)
     return (count, torch.where(take, f16_to_f32(best & 0xFFFF), steps),
             torch.where(take, z_q, zbuf))

@@ -21,7 +21,7 @@ elementwise pass fused with the conversion, four operations on the card's
 stream (a 16-byte memset, the reduction, its one-thread finalize, the
 pass; the palette goes to the card once), where the plain chain
 (:func:`colorize_stats`, :func:`colorize_planes`, then
-:func:`utils.export.convert_format_device`) launches some 150 eager ops.
+:func:`convert_format_device`) launches some 150 eager ops.
 :func:`tonemap` runs the plain chain for a state on the CPU; for a state on
 a card it launches the kernel, adds one to each wrapper's ``launches``
 count and raises when it cannot launch, never falling back to the plain
@@ -40,7 +40,6 @@ import torch
 from ..config import Config, RenderKind
 from ..models.transforms import sqrt_ieee
 from ..runtime import RenderState
-from ..utils.export import convert_format_device
 from . import cuda_lib
 from .binning import u32, unpack_zv
 from .projection import f32
@@ -193,6 +192,19 @@ def _card_palette(stops: bytes, device: torch.device) -> torch.Tensor:
     return torch.frombuffer(bytearray(stops), dtype=torch.float32).to(device)
 
 
+def convert_format_device(image_u16: torch.Tensor, transparent: bool, eight_bit: bool):
+    """The (transparent, 8-bit) conversion on the device, the torch twin of
+    :func:`utils.export.convert_format`: the plain chain's last step. For v
+    in [0, 65535], ``(v*255 + 32767) // 65535 == ((v + 128) * 65281) >>
+    24`` exactly (the JAX package's strength reduction, derived at
+    strange_attractor_tpu/utils/export.py:42-51); the product needs more
+    than 31 bits, so it runs in int64."""
+    img = image_u16 if transparent else image_u16[..., :3]
+    if eight_bit:
+        img = (((img.to(torch.int64) + 128) * 65281) >> 24).to(torch.uint8)
+    return img
+
+
 def _out_tensor(out: Optional[torch.Tensor], shape: tuple, dtype, device) -> torch.Tensor:
     if out is None:
         return torch.empty(shape, dtype=dtype, device=device)
@@ -206,7 +218,7 @@ def tonemap(config: Config, state: RenderState, *, transparent: bool = True,
             eight_bit: bool = False, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A state's image: the tone map (:func:`colorize_planes`, alpha as
     ``config.transparent`` says) and the conversion
-    (:func:`utils.export.convert_format_device`: alpha kept when
+    (:func:`convert_format_device`: alpha kept when
     ``transparent``, 8-bit when ``eight_bit``), an (H, W, 4 or 3) uint16
     or uint8 tensor on the state's device. ``out`` optionally takes the
     image (a contiguous tensor of its shape and dtype on the device).

@@ -104,7 +104,8 @@ _LIB: dict = {}
 _CAPABILITY: dict = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of ``nvcc``: on ``PATH``, else under ``CUDA_HOME``."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -123,7 +124,8 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsat_torch_{h.hexdigest()[:16]}.so"
 
 
-def _check_run(cmd: list, proc: subprocess.Popen) -> None:
+def check_run(cmd: list, proc: subprocess.Popen) -> None:
+    """Wait for an ``nvcc`` process; raise with its output if it failed."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
@@ -135,22 +137,22 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    compiler = nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)] for s, o in zip(SOURCES, objs)]
+        cmds = [[compiler, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)] for s, o in zip(SOURCES, objs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
         try:
             for cmd, proc in zip(cmds, procs):
-                _check_run(cmd, proc)
+                check_run(cmd, proc)
         finally:
             for proc in procs:
                 proc.kill()
                 proc.wait()
         lib = str(Path(tmp) / "lib.so")
-        cmd = [nvcc, "-shared", "-o", lib, *objs]
-        _check_run(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        cmd = [compiler, "-shared", "-o", lib, *objs]
+        check_run(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True))
         os.replace(lib, path)  # atomic: two processes building at once race harmlessly
     return path

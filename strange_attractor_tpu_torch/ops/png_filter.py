@@ -6,8 +6,8 @@ Both give the bytes of :func:`utils.export._filter_scanlines_numpy` on the
 image's PNG scanlines (16-bit samples big-endian): per row the filter type
 of the five (None, Sub, Up, Average, Paeth) whose residuals, each a byte,
 cost least by sum(min(c, 256 - c)), ties to the lowest index, then that
-filter's residuals. ``utils.export`` runs it at write time on the device
-copy of a delivered image, so the host only deflates. :func:`png_filter`
+filter's residuals. A PNG write runs it on the device copy of a delivered
+image (:func:`deliver.filtered_scanlines`), so the host only deflates. :func:`png_filter`
 runs the twin for an image on the CPU; for one on a card it launches the
 kernel, adds one to ``png_filter.launches`` and raises when it cannot
 launch, never falling back to the twin there.

@@ -118,8 +118,8 @@ def render_distributed(config, generator: Optional[torch.Generator] = None, *,
     ``state`` and ``on_progress`` are :func:`mesh.render_sharded`'s, on
     every rank: each rank holds the standing state, and every group of
     chunks merges on all ranks before ``on_progress`` runs."""
-    from .mesh import _Lanes, _render_lanes
+    from .mesh import Lanes, render_lanes
 
-    lanes = _Lanes([device()], [process_index()], process_count(), dist.group.WORLD)
-    return _render_lanes(config, lanes, generator, state, on_progress)
+    lanes = Lanes([device()], [process_index()], process_count(), dist.group.WORLD)
+    return render_lanes(config, lanes, generator, state, on_progress)
 

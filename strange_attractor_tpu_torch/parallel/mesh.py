@@ -24,7 +24,7 @@ points and render key (:func:`render.seeds_and_key`) from
 ``(base, n, s)`` through numpy's ``SeedSequence``. ``base`` is
 ``config.seed``; with a ``generator`` argument it is the generator's first
 draw, and a seeded resume folds the standing state's content nonce into the
-seed first (:func:`render._progressive_nonce`, the JAX package's
+seed first (:func:`runtime.progressive_nonce`, the JAX package's
 ``progressive_key``). An unseeded config draws OS entropy for every shard.
 Rank ``r`` of a ``torch.distributed`` group of ``n`` renders shard ``r`` of
 ``n`` by the same rule, so a two-rank render equals :func:`render_sharded`
@@ -40,13 +40,14 @@ import numpy as np
 import torch
 
 from ..config import BinStrategy, Config
-from ..ops.binning import _inv_mono_u32, _mono_u32, canonical_zero, to_u32_bits, u32
-from ..render import (PROGRESS_EVERY, Stepper, _auto_frames_per_batch, _check_state, _deliver,
-                      _draw_base, _host_frames, _planes_to_state, _progressive_nonce,
-                      _same_device, _sealed, _sequence_base, _state_to_planes, _strategy,
+from ..deliver import deliver_batch, host_frames, sealed
+from ..ops.binning import canonical_zero, inv_mono_u32, mono_u32, to_u32_bits, u32
+from ..render import (PROGRESS_EVERY, Stepper, auto_frames_per_batch, check_state, draw_base,
                       frame_generator, plan_schedule, render_seeds_shared,
-                      render_sequence_batched, seeds_and_key)
-from ..runtime import RenderState, merge, resolve_device
+                      render_sequence_batched, render_strategy, same_device, seeds_and_key,
+                      sequence_base)
+from ..runtime import (RenderState, merge, planes_to_state, progressive_nonce, resolve_device,
+                       state_to_planes)
 
 
 def resolve_devices(devices=None) -> list:
@@ -111,7 +112,7 @@ def _shard_base(config: Config, generator: Optional[torch.Generator],
     generator's first draw, else the seed with a resume's nonce folded in,
     else None (OS entropy)."""
     if generator is not None:
-        return _draw_base(generator)
+        return draw_base(generator)
     if config.seed is None or nonce is None:
         return config.seed
     return int(np.random.SeedSequence([int(config.seed), int(nonce)])
@@ -134,13 +135,13 @@ def _float_max(parts: list, ids: list, n: int, reduce) -> tuple:
     ib = max(1, (n - 1).bit_length())
 
     def key(z, i):
-        rank = torch.where(torch.isnan(z), 0, _mono_u32(canonical_zero(z)))
+        rank = torch.where(torch.isnan(z), 0, mono_u32(canonical_zero(z)))
         neg0 = ((z == 0.0) & torch.signbit(z)).to(torch.int64)
         return (rank << (ib + 1)) | ((n - 1 - i) << 1) | neg0
 
     best = reduce([key(z, i) for z, i in zip(parts, ids)], torch.amax)
     rank = best >> (ib + 1)
-    z = torch.where(rank == 0, float("-inf"), _inv_mono_u32(rank))
+    z = torch.where(rank == 0, float("-inf"), inv_mono_u32(rank))
     z = torch.where((best & 1) == 1, -0.0, z)
     return z, n - 1 - ((best >> 1) & ((1 << ib) - 1))
 
@@ -213,14 +214,9 @@ def merge_collective(planes, strategy: BinStrategy, group=None) -> tuple:
                   reduce)
 
 
-def planes_to_state(planes, strategy: BinStrategy, shape) -> RenderState:
-    """Reassemble a RenderState of ``shape`` from flat planes."""
-    return _planes_to_state(tuple(planes), strategy.planes_kind(), tuple(shape))
-
-
 # ----------------------------------------------------------------- render --
 
-class _Lanes(NamedTuple):
+class Lanes(NamedTuple):
     """How one canvas's lanes split: the shards this process renders
     (their devices and indices), the shard count, and the process group
     that merges them (None: every shard is in this process)."""
@@ -231,11 +227,11 @@ class _Lanes(NamedTuple):
     group: object = None
 
 
-def _lanes_on(devices: list) -> _Lanes:
-    return _Lanes(list(devices), list(range(len(devices))), len(devices))
+def _lanes_on(devices: list) -> Lanes:
+    return Lanes(list(devices), list(range(len(devices))), len(devices))
 
 
-def _merged(shards: list, lanes: _Lanes, strategy: BinStrategy, shape) -> RenderState:
+def _merged(shards: list, lanes: Lanes, strategy: BinStrategy, shape) -> RenderState:
     """The merge of this process's shards' planes over ``lanes``."""
     if lanes.group is not None:
         (planes,) = shards
@@ -243,20 +239,20 @@ def _merged(shards: list, lanes: _Lanes, strategy: BinStrategy, shape) -> Render
     return planes_to_state(merge_collective(shards, strategy), strategy, shape)
 
 
-def _render_lanes(config: Config, lanes: _Lanes, generator, state, on_progress) -> RenderState:
+def render_lanes(config: Config, lanes: Lanes, generator, state, on_progress) -> RenderState:
     """One frame with its lanes split as ``lanes`` says, merged, and
     folded into a standing ``state`` with :func:`runtime.merge`."""
     home = lanes.devices[0]
     nonce = None
     if state is not None:
-        _check_state(config, state)
-        if not _same_device(home, state.device):
+        check_state(config, state)
+        if not same_device(home, state.device):
             raise ValueError(f"the state lies on {state.device}, but the merge runs on {home}")
         if generator is None and config.seed is not None:
-            nonce = _progressive_nonce(state)
+            nonce = progressive_nonce(state)
     if config.iterations < 1:
         return state if state is not None else RenderState.create(config, device=home)
-    strategy = _strategy(config, state)
+    strategy = render_strategy(config, state)
     local = shard_config(config, lanes.count)
     base = _shard_base(config, generator, nonce)
     draws = [seeds_and_key(local, shard_generator(config, s, lanes.count, base))
@@ -303,7 +299,7 @@ def render_sharded(config: Config, devices=None, generator: Optional[torch.Gener
     64)`` chunks and after the last one; every shard then stands at the
     same chunk. ``iterations < 1`` renders nothing, as :func:`render.render`
     does: the standing state, or a blank one."""
-    return _render_lanes(config, _lanes_on(resolve_devices(devices)), generator, state,
+    return render_lanes(config, _lanes_on(resolve_devices(devices)), generator, state,
                          on_progress)
 
 
@@ -353,7 +349,7 @@ def render_sequence_sharded(config: Config, angles_deg: Sequence[float], devices
         if len(devices) != 1:
             raise ValueError("a rank of a process group renders on one device")
         frame_axis = 1
-        rows = [_Lanes(devices, [dist.get_rank(group)], dist.get_world_size(group), group)]
+        rows = [Lanes(devices, [dist.get_rank(group)], dist.get_world_size(group), group)]
     else:
         ndev = len(devices)
         if frame_axis <= 0:
@@ -367,14 +363,14 @@ def render_sequence_sharded(config: Config, angles_deg: Sequence[float], devices
     nang = len(angles)
     full_len = nang + (-nang) % frame_axis
     if frames_per_batch <= 0:
-        frames_per_batch = _auto_frames_per_batch(config, strategy)
+        frames_per_batch = auto_frames_per_batch(config, strategy)
     per_batch = frames_per_batch * frame_axis
     group_len = full_len if per_batch >= full_len else per_batch
     if orbit not in ("per-frame", "shared"):
         raise ValueError(f"orbit must be 'per-frame' or 'shared', got {orbit!r}")
-    base = _sequence_base(config, generator)
+    base = sequence_base(config, generator)
     rad = np.radians(angles)
-    out = _host_frames(config, nang, transparent, eight_bit)
+    out = host_frames(config, nang, transparent, eight_bit)
     per_row = group_len // frame_axis
     for start in range(0, nang, group_len):
         slices = [(lo, min(lo + per_row, nang)) for lo in
@@ -390,25 +386,25 @@ def render_sequence_sharded(config: Config, angles_deg: Sequence[float], devices
                 for r, (lo, hi) in enumerate(slices):
                     if lo + k < hi:
                         i = lo + k
-                        states[r].append(_render_lanes(
+                        states[r].append(render_lanes(
                             config.replace(angle=float(rad[i])), rows[r],
                             frame_generator(config, i, base), None, None))
         for row_states, (lo, hi) in zip(states, slices):
             if lo < hi:
-                _deliver(config, row_states, out[lo:hi], transparent, eight_bit)
-    return _sealed(out, devices[0])
+                deliver_batch(config, row_states, out[lo:hi], transparent, eight_bit)
+    return sealed(out, devices[0])
 
 
-def _shared_row(config: Config, lanes: _Lanes, lo: int, hi: int, rad, base: int) -> list:
+def _shared_row(config: Config, lanes: Lanes, lo: int, hi: int, rad, base: int) -> list:
     """Frames ``lo:hi`` of a shared-orbit row: every shard bins its lanes
     of the row's orbit at each angle (:func:`render.render_seeds_shared`),
     and each frame merges across the shards."""
     strategy = config.resolved_bin_strategy()
     local = shard_config(config, lanes.count)
-    row_base = _draw_base(frame_generator(config, lo, base))
+    row_base = draw_base(frame_generator(config, lo, base))
     per_shard = []
     for s, dev in zip(lanes.shards, lanes.devices):
         seeds, key = seeds_and_key(local, shard_generator(config, s, lanes.count, row_base))
         per_shard.append(render_seeds_shared(local, seeds.to(dev), rad[lo:hi], reseed_key=key))
-    return [_merged([_state_to_planes(st) for st in frame], lanes, strategy, frame[0].shape)
+    return [_merged([state_to_planes(st) for st in frame], lanes, strategy, frame[0].shape)
             for frame in zip(*per_shard)]

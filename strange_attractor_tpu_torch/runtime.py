@@ -104,6 +104,40 @@ class RenderState(NamedTuple):
         return RenderState.blank(self.shape, self.strategy, self.device)
 
 
+def state_to_planes(state: RenderState) -> tuple:
+    """Flattened copies of the state's planes in the bin's argument order
+    (PACKED count, packed; DEPTH zbuf; EXACT count, steps, zbuf): the
+    kernels bin in place, and the caller's state stays valid."""
+    kind = state.strategy
+    if kind == BinStrategy.PACKED:
+        planes = (state.count, state.packed)
+    elif kind == BinStrategy.DEPTH:
+        planes = (state.zbuf,)
+    else:
+        planes = (state.count, state.steps, state.zbuf)
+    return tuple(p.reshape(-1).clone() for p in planes)
+
+
+def planes_to_state(planes, strategy: BinStrategy, shape) -> RenderState:
+    """Inverse of :func:`state_to_planes`: a RenderState of (H, W)
+    ``shape`` from the flat planes of ``strategy``'s planes kind."""
+    kind = strategy.planes_kind()
+    p = [plane.reshape(tuple(shape)) for plane in planes]
+    if kind == BinStrategy.PACKED:
+        return RenderState(count=p[0], packed=p[1])
+    if kind == BinStrategy.DEPTH:
+        return RenderState(zbuf=p[0])
+    return RenderState(count=p[0], steps=p[1], zbuf=p[2])
+
+
+def progressive_nonce(state: RenderState) -> int:
+    """The accumulated content as a u32 (JAX render.py:70-93): the count
+    sum, or for a DEPTH state the sum of the zbuf bits. A seeded
+    progressive render draws its seeds with it folded into the seed."""
+    plane = state.count if state.count is not None else state.zbuf.view(torch.int32)
+    return int(u32(plane).sum()) & 0xFFFFFFFF
+
+
 def merge(a: RenderState, b: RenderState) -> RenderState:
     """Combine two renders of the same scene (reference ``Runtime::merge``,
     src/lib.rs:708-738): counts add (mod 2^32); where ``b`` is nearer its

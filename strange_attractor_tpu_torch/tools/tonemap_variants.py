@@ -71,7 +71,7 @@ def _build(work: Path) -> dict:
     from ..ops import cuda_lib
 
     source = (cuda_lib.CSRC / "tonemap.cu").read_text()
-    nvcc, procs = cuda_lib._nvcc(), {}
+    nvcc, procs = cuda_lib.nvcc(), {}
     for i, name in enumerate(VARIANTS):
         src, lib = work / f"variant{i}.cu", work / f"variant{i}.so"
         src.write_text(variant_source(name, source))
@@ -81,7 +81,7 @@ def _build(work: Path) -> dict:
                                                   stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, cmd, proc) in procs.items():
-        cuda_lib._check_run(cmd, proc)
+        cuda_lib.check_run(cmd, proc)
         libs[name] = ctypes.CDLL(str(lib))
         for fn in ("sat_tonemap_stats", "sat_tonemap"):
             entry = getattr(libs[name], fn)

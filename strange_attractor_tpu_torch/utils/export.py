@@ -1,7 +1,8 @@
-"""Image export (port of ``strange_attractor_tpu.utils.export``): the
-(transparent, 8-bit) conversion on the device, then PNG (8/16-bit), animated
-PNG, BMP (8-bit) and PAM (8/16-bit) writers on the host, and a PNG reader
-(:func:`read_png`) for the tools that compare images.
+"""Image export (port of ``strange_attractor_tpu.utils.export``), host file
+formats only: the (transparent, 8-bit) conversion of a host array, PNG
+(8/16-bit), animated PNG, BMP (8-bit) and PAM (8/16-bit) writers, and a PNG
+reader (:func:`read_png`) for the tools that compare images. The device's
+side of the conversion is :func:`ops.colorize.convert_format_device`.
 
 Mirrors the reference CLI's export matrix (src/bin/main.rs:27-104). PNG
 scanlines are filtered and deflated by the native host library of
@@ -9,49 +10,36 @@ scanlines are filtered and deflated by the native host library of
 filter and a parallel deflate), and by numpy and the stdlib's zlib where it
 cannot be built. 16-bit PNG samples are big-endian per the PNG spec.
 
-An image delivered from a card keeps its device copy until it is written.
-``render`` records each host array it fills from a card against the device
-tensor it was copied from (:func:`_record_device_copy`), keyed on the
-array's exact layout (data address, shape, strides, dtype), and sets the
-array read-only. A PNG of such an array, while it reads read-only, is
-filtered on the card (:func:`ops.png_filter.png_filter`, kernel F) and its
-filtered scanlines come back in one copy; the host then only deflates. A
-record goes at the array's first :func:`write_image` (a BMP or PAM has no
-use for it), with the array that owns the memory, or, oldest first, once
-the records of a device hold more than ``_DEVICE_COPY_BUDGET`` bytes of
-its memory (a long sequence the host keeps): its PNG then takes the host
-filter, as does any other array (a CPU render, a slice, a converted layout,
-a copy, an APNG frame, an array that is writable when it is written). An
-array made writable, changed and set read-only again cannot be told from
-one never changed: copy it instead.
+This module imports neither ``torch`` nor ``ops``, but it imports
+:mod:`deliver`, which loads both: the file formats are host code, and the
+card's side of a PNG stays in :mod:`deliver`. An image delivered from a
+card keeps its device copy until it is written (:mod:`deliver`). A PNG first asks :func:`deliver.filtered_scanlines` for
+the array's scanlines filtered on the card, which takes the record; without
+one (a CPU render, a slice, a converted layout, a copy, an APNG frame, an
+array that is writable when it is written, a record past the device
+budget) it filters on the host. A BMP or PAM write releases the record
+(:func:`deliver.take_device_copy`).
 
 Spans (:func:`utils.profiling.span`, recorded under a profiler only):
-``deliver.copy`` (:func:`to_host`; ``bytes``), ``image.write``
-(:func:`write_image`, whole; ``fmt``, ``bytes`` of the file),
-``png.filter`` (``bytes_in``, ``bytes_out``, ``native`` 1 or 0, ``card``
-1 where the device filtered, else 0),
-``png.deflate`` (``bytes_in``, ``bytes_out``, ``threads``, ``stripes``) and
-``file.write`` (``bytes``). ``image.write``'s time outside its children
-is the host's format pass, the CRC and the join.
+``image.write`` (:func:`write_image`, whole; ``fmt``, ``bytes`` of the
+file), ``png.filter`` (``bytes_in``, ``bytes_out``, ``native`` 1 or 0,
+``card`` 1 where the device filtered, in :func:`deliver.filtered_scanlines`,
+else 0), ``png.deflate`` (``bytes_in``, ``bytes_out``, ``threads``,
+``stripes``) and ``file.write`` (``bytes``). ``image.write``'s time outside
+its children is the host's format pass, the CRC and the join.
 """
 
 from __future__ import annotations
 
-import itertools
 import struct
-import threading
-import weakref
 import zlib
-from collections import OrderedDict
 from fractions import Fraction
 from pathlib import Path
-from typing import Optional
 
 import numpy as np
-import torch
 
-from ..ops.png_filter import png_filter
-from .native import deflate_stripes, deflate_threads, png_filter_adaptive, zlib_compress_parallel
+from .. import deliver
+from .native import deflate_plan, png_filter_adaptive, zlib_compress_parallel
 from .profiling import span
 
 
@@ -59,129 +47,11 @@ def convert_format(image_u16: np.ndarray, transparent: bool, eight_bit: bool) ->
     """Apply the (transparent, 8-bit) conversion matrix on the host
     (main.rs:52-57): drop alpha unless transparent; 8-bit scales with
     rounding, ``round(v * 255 / 65535)``. Input already converted by
-    :func:`convert_format_device` passes through unchanged."""
+    :func:`ops.colorize.convert_format_device` passes through unchanged."""
     img = image_u16 if (transparent or image_u16.shape[-1] == 3) else image_u16[..., :3]
     if eight_bit and img.dtype != np.uint8:
         img = ((img.astype(np.uint32) * 255 + 32767) // 65535).astype(np.uint8)
     return img
-
-
-def convert_format_device(image_u16: torch.Tensor, transparent: bool, eight_bit: bool):
-    """Torch twin of :func:`convert_format`, run on the device before the
-    single host copy. For v in [0, 65535], ``(v*255 + 32767) // 65535 ==
-    ((v + 128) * 65281) >> 24`` exactly (the JAX package's strength
-    reduction, derived at strange_attractor_tpu/utils/export.py:42-51);
-    the product needs more than 31 bits, so it runs in int64."""
-    img = image_u16 if transparent else image_u16[..., :3]
-    if eight_bit:
-        img = (((img.to(torch.int64) + 128) * 65281) >> 24).to(torch.uint8)
-    return img
-
-
-def to_host(image: torch.Tensor) -> np.ndarray:
-    """One device-to-host copy of a converted image."""
-    with span("deliver.copy") as sp:
-        out = image.contiguous().cpu().numpy()
-        if sp:
-            sp.set(bytes=out.nbytes)
-    return out
-
-
-# ------------------------------------------------- delivered device copies ----
-
-# the device memory the records of one device may hold: the sequence
-# engines' budget for a batch (render._auto_frames_per_batch)
-_DEVICE_COPY_BUDGET = 2_000_000_000
-# layout key -> (token, weak reference to the owning array, device tensor,
-# its storage's key), oldest first
-_DEVICE_COPIES: OrderedDict = OrderedDict()
-# (device, storage address) -> [records that hold the storage, its bytes]
-_HELD: dict = {}
-# reentrant: a record's finalizer may run inside the lock, on any thread
-_DEVICE_COPIES_LOCK = threading.RLock()
-_TOKENS = itertools.count()
-
-
-def _layout(arr: np.ndarray) -> tuple:
-    return arr.__array_interface__["data"][0], arr.shape, arr.strides, arr.dtype.str
-
-
-def _owner(arr: np.ndarray) -> np.ndarray:
-    """The array at the root of ``arr``'s views: the one whose death frees
-    (or lets go of) the memory."""
-    while isinstance(arr.base, np.ndarray):
-        arr = arr.base
-    return arr
-
-
-def _record_device_copy(host: np.ndarray, device: torch.Tensor) -> None:
-    """Record that ``host`` holds the bytes of ``device``, a contiguous
-    tensor of its shape and dtype that nothing writes again (a view keeps
-    its whole storage). The record lives until its array's first write,
-    until the array that owns ``host``'s memory dies, or until newer
-    records push its device's held bytes past ``_DEVICE_COPY_BUDGET``."""
-    if tuple(device.shape) != host.shape or device.element_size() != host.itemsize:
-        raise ValueError(f"a {tuple(device.shape)} {device.dtype} tensor cannot be the copy "
-                         f"of a {host.shape} {host.dtype} array")
-    owner, key, token = _owner(host), _layout(host), next(_TOKENS)
-    storage = device.untyped_storage()
-    where = str(device.device)
-    held_key = (where, storage.data_ptr())
-    with _DEVICE_COPIES_LOCK:
-        _drop_device_copy(key)
-        _DEVICE_COPIES[key] = (token, weakref.ref(owner), device, held_key)
-        _HELD.setdefault(held_key, [0, storage.nbytes()])[0] += 1
-        while sum(b for (d, _), (_, b) in _HELD.items() if d == where) > _DEVICE_COPY_BUDGET:
-            _drop_device_copy(next(k for k, r in list(_DEVICE_COPIES.items())
-                                   if r[3][0] == where))
-    weakref.finalize(owner, _forget_device_copy, key, token)
-
-
-def _drop_device_copy(key: tuple) -> Optional[tuple]:
-    """Remove the record of ``key``, if any, and return it; under the lock."""
-    record = _DEVICE_COPIES.pop(key, None)
-    if record is not None:
-        held = _HELD[record[3]]
-        held[0] -= 1
-        if not held[0]:
-            del _HELD[record[3]]
-    return record
-
-
-def _forget_device_copy(key: tuple, token: int) -> None:
-    with _DEVICE_COPIES_LOCK:
-        record = _DEVICE_COPIES.get(key)
-        if record is not None and record[0] == token:
-            _drop_device_copy(key)
-
-
-def _take_device_copy(arr: np.ndarray) -> Optional[torch.Tensor]:
-    """The device copy recorded for exactly ``arr``'s layout, dropping the
-    record; None without one, or once ``arr`` or its owner is writable."""
-    with _DEVICE_COPIES_LOCK:
-        record = _drop_device_copy(_layout(arr))
-    if record is None:
-        return None
-    owner = record[1]()
-    if owner is None or arr.flags.writeable or owner.flags.writeable:
-        return None
-    return record[2]
-
-
-def _filter_on_device(image: torch.Tensor) -> np.ndarray:
-    """The filtered scanlines of a delivered image's device copy as a flat
-    uint8 host array. On a card kernel F runs on a stream of its own (the
-    copy is complete: its host copy has returned) and the bytes come back
-    in one copy into pinned memory, which the deflate then reads."""
-    if image.device.type != "cuda":
-        return png_filter(image).reshape(-1).numpy()
-    stream = torch.cuda.Stream(image.device)
-    with torch.cuda.stream(stream):
-        filtered = png_filter(image)
-        host = torch.empty(filtered.numel(), dtype=torch.uint8, pin_memory=True)
-        host.copy_(filtered.reshape(-1), non_blocking=True)
-    stream.synchronize()
-    return host.numpy()
 
 
 # ---------------------------------------------------------------- PNG ----
@@ -203,21 +73,12 @@ def _png_geometry(arr: np.ndarray, samples: bool = True):
     return h, w, depth, color_type, raw
 
 
-def _filter_scanlines(raw: Optional[np.ndarray], h: int, device: Optional[torch.Tensor] = None):
+def _filter_scanlines(raw: np.ndarray, h: int) -> bytes:
     """Adaptive per-row PNG filtering (``FilterType::Adaptive``, like the
-    reference encoder, src/bin/main.rs:84-88): each scanline keeps the
-    filter of the five (None/Sub/Up/Average/Paeth) with the smallest sum of
-    absolute signed residuals. ``device``, a delivered image's device copy,
-    is filtered there (:func:`_filter_on_device`; ``raw`` is not read);
-    else the native filter runs on the host, or
-    :func:`_filter_scanlines_numpy`. Returns the filtered bytes (bytes or a
-    flat uint8 array)."""
-    if device is not None:
-        with span("png.filter", bytes_in=device.numel() * device.element_size()) as sp:
-            out = _filter_on_device(device)
-            if sp:
-                sp.set(bytes_out=out.nbytes, native=0, card=1)
-        return out
+    reference encoder, src/bin/main.rs:84-88) on the host: each scanline
+    keeps the filter of the five (None/Sub/Up/Average/Paeth) with the
+    smallest sum of absolute signed residuals. The native filter runs, or
+    :func:`_filter_scanlines_numpy`. Returns the filtered bytes."""
     raw = np.ascontiguousarray(raw)
     rows = raw.reshape(h, -1).view(np.uint8).reshape(h, -1)
     bpp = raw.shape[-1] * raw.itemsize
@@ -275,18 +136,18 @@ def _deflate(filtered) -> bytes:
     with span("png.deflate", bytes_in=len(filtered)) as sp:
         out = zlib_compress_parallel(filtered, 6)
         if sp:
-            n = len(filtered)
-            sp.set(bytes_out=len(out), threads=deflate_threads(n), stripes=deflate_stripes(n))
+            threads, stripes = deflate_plan(len(filtered))
+            sp.set(bytes_out=len(out), threads=threads, stripes=stripes)
     return out
 
 
 def png_bytes(arr: np.ndarray) -> bytes:
     """Encode (H, W, 3|4) uint8/uint16 as a PNG byte string; a delivered
     image's scanlines are filtered on its device (module docstring)."""
-    device = _take_device_copy(arr)
-    h, w, depth, color_type, raw = _png_geometry(arr, samples=device is None)
+    filtered = deliver.filtered_scanlines(arr)
+    h, w, depth, color_type, raw = _png_geometry(arr, samples=filtered is None)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
-    idat = _deflate(_filter_scanlines(raw, h, device))
+    idat = _deflate(_filter_scanlines(raw, h) if filtered is None else filtered)
     return b"".join(
         [b"\x89PNG\r\n\x1a\n", _chunk(b"IHDR", ihdr), _chunk(b"IDAT", idat), _chunk(b"IEND", b"")]
     )
@@ -510,7 +371,7 @@ def write_image(base_path, image: np.ndarray, *, fmt: str = "png", transparent: 
             print("Converting image format.")
         arr = convert_format(image, transparent, eight_bit)
         if fmt != "png":
-            _take_device_copy(image)  # a BMP or PAM has no use for the device copy
+            deliver.take_device_copy(image)  # a BMP or PAM has no use for the device copy
         path = Path(base_path).with_suffix("." + fmt)
         if not silent:
             print("Rendering complete. Writing file.")

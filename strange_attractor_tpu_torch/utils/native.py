@@ -1,12 +1,19 @@
 """Build and load the native PNG helpers: the adaptive scanline filter and a
 parallel deflate (``csrc/fastdeflate.cpp``, host code for the CPU).
 
-A copy of the JAX package's ``strange_attractor_tpu/utils/native.py``, built
-the way :mod:`ops.cuda_lib` builds the CUDA sources: with ``g++`` at first
-use into ``build/torch_kernels/`` beside the package, under a name keyed on
-a hash of the source, then loaded with ``ctypes``. Nothing builds at import.
-Everything degrades: without ``g++`` or zlib's headers the callers fall back
-to numpy and the stdlib's ``zlib`` (:func:`encoder` says which one runs).
+The loader follows the JAX package's ``strange_attractor_tpu/utils/native.py``
+and builds the way :mod:`ops.cuda_lib` builds the CUDA sources: with
+``g++`` at first use into ``build/torch_kernels/`` beside the package, under
+a name keyed on a hash of the source, then loaded with ``ctypes``. Nothing
+builds at import. Everything degrades: without ``g++`` or zlib's headers the
+callers fall back to numpy and the stdlib's ``zlib`` (:func:`encoder` says
+which one runs).
+
+The parallel deflate is the port's own: a payload from 2 MB up is cut into
+fixed 256 KB stripes (the last takes the rest; the count depends on the
+length alone, :func:`deflate_plan`), each primed with the 32 KB of input
+before it, which the threads pull from a shared counter; the stripes are
+joined into one zlib stream behind the level-6 header ``78 9c``.
 """
 
 from __future__ import annotations
@@ -77,24 +84,17 @@ def encoder() -> str:
     return "native" if get_lib() is not None else "stdlib"
 
 
-def deflate_threads(n: int, threads: Optional[int] = None) -> int:
-    """The threads :func:`zlib_compress_parallel` deflates ``n`` bytes on
-    (``threads`` as it is given there): 1 where it takes the stdlib's
-    ``zlib.compress``."""
+def deflate_plan(n: int, threads: Optional[int] = None) -> tuple[int, int]:
+    """(threads, stripes) :func:`zlib_compress_parallel` deflates ``n``
+    bytes with (``threads`` as it is given there): one stripe a 256 KB of
+    input (the last takes the rest), or (1, 1) where it takes the stdlib's
+    ``zlib.compress``. One look at the library."""
     if threads is None:
         threads = min(16, os.cpu_count() or 1)
-    if get_lib() is None or n < (1 << 21) or threads < 2:
-        return 1
-    return threads
-
-
-def deflate_stripes(n: int, threads: Optional[int] = None) -> int:
-    """The stripes :func:`zlib_compress_parallel` cuts ``n`` bytes into:
-    one a 256 KB of input (the last takes the rest), 1 where it takes the
-    stdlib's ``zlib.compress``."""
-    if deflate_threads(n, threads) < 2:
-        return 1
-    return get_lib().fastdeflate_stripes(n)
+    lib = get_lib()
+    if lib is None or n < (1 << 21) or threads < 2:
+        return 1, 1
+    return threads, lib.fastdeflate_stripes(n)
 
 
 def zlib_compress_parallel(data, level: int = 6, threads: Optional[int] = None) -> bytes:
@@ -107,7 +107,7 @@ def zlib_compress_parallel(data, level: int = 6, threads: Optional[int] = None) 
     bytes differ from ``zlib.compress``'s but depend on ``data`` alone,
     never on the thread count."""
     n = len(data)
-    threads = deflate_threads(n, threads)
+    threads, stripes = deflate_plan(n, threads)
     if threads < 2:
         return zlib.compress(data, level)
     import numpy as np
@@ -116,7 +116,7 @@ def zlib_compress_parallel(data, level: int = 6, threads: Optional[int] = None) 
     # deflate's worst case, stored blocks, is under n >> 9 beyond n; each
     # stripe adds its own stream's slack: a full flush's empty stored block
     # (5 bytes and a partial byte) and deflateBound's per-stream constant
-    cap = n + (n >> 9) + 64 + 32 * lib.fastdeflate_stripes(n)
+    cap = n + (n >> 9) + 64 + 32 * stripes
     out = ctypes.create_string_buffer(cap)
     written = lib.fastdeflate_zlib(np.frombuffer(data, np.uint8).ctypes.data, n, level, threads,
                                    out, cap)

@@ -30,15 +30,16 @@ a thread, on the trace's clock. The spans, by layer:
 - sequence engine: ``engine.batch`` (one batch of
   ``render_sequence_shared`` or ``render_sequence_batched``; ``frames``,
   ``chunks``);
-- delivery: ``deliver.tonemap`` (kernel T's launches, or the plain
-  chain; ``frames``, ``render`` the render kind, ``gas`` or ``depth``),
-  ``deliver.copy`` (the device-to-host copy:
-  ``utils.export.to_host`` and ``render._deliver``'s; ``bytes``);
+- delivery (``deliver.py``): ``deliver.tonemap`` (kernel T's launches,
+  or the plain chain; ``frames``, ``render`` the render kind, ``gas`` or
+  ``depth``), ``deliver.copy`` (the device-to-host copy, ``fetch`` and
+  ``deliver_batch``'s; ``bytes``);
 - encoder (``utils/export.py``): ``image.write`` (``write_image``;
   ``fmt``, ``bytes`` of the file), ``png.filter`` (``bytes_in``,
   ``bytes_out``, ``native`` 0 or 1, ``card`` 1 where kernel F filtered a
-  delivered image's device copy), ``png.deflate`` (``bytes_in``,
-  ``bytes_out``, ``threads``, ``stripes``), ``file.write`` (``bytes``).
+  delivered image's device copy, in ``deliver.filtered_scanlines``),
+  ``png.deflate`` (``bytes_in``, ``bytes_out``, ``threads``,
+  ``stripes``), ``file.write`` (``bytes``).
 
 The JAX package's ``force_cpu_if_requested`` and
 ``enable_compilation_cache`` are not carried: they work around the TPU
@@ -84,7 +85,7 @@ class RenderProfile:
             state = render(config, device="cuda")
             sync(state.count)
         with prof.phase("colorize"):
-            image = to_host(colorize(config, state))
+            image = fetch(colorize(config, state))
         print(prof.summary())
     """
 

@@ -44,11 +44,11 @@ def _floats(seed: int, n: int = 4096) -> np.ndarray:
 def test_mono_u32_and_inverse_bit_exact():
     z = _floats(0)
     want = np.asarray(jb._mono_u32(jnp.asarray(z)))
-    got = tb._mono_u32(torch.from_numpy(z)).numpy().astype(np.uint32)
+    got = tb.mono_u32(torch.from_numpy(z)).numpy().astype(np.uint32)
     np.testing.assert_array_equal(got, want)
     mono = np.random.default_rng(1).integers(0, 2**32, 8192, dtype=np.uint64).astype(np.uint32)
     want_f = np.asarray(jb._inv_mono_u32(jnp.asarray(mono))).view(np.uint32)
-    got_f = tb._inv_mono_u32(torch.from_numpy(mono.astype(np.int64))).numpy().view(np.uint32)
+    got_f = tb.inv_mono_u32(torch.from_numpy(mono.astype(np.int64))).numpy().view(np.uint32)
     np.testing.assert_array_equal(got_f, want_f)
 
 

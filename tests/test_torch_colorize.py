@@ -26,6 +26,7 @@ from strange_attractor_tpu.ops.binning import pack_zv as jpack
 from strange_attractor_tpu.runtime import RenderState as JState
 from strange_attractor_tpu.utils import export as jexport
 from strange_attractor_tpu_torch.convert import config_from_reference
+from strange_attractor_tpu_torch.deliver import fetch
 from strange_attractor_tpu_torch.ops import colorize as tc
 from strange_attractor_tpu_torch.runtime import RenderState
 from strange_attractor_tpu_torch.utils import export as texport
@@ -116,8 +117,7 @@ def test_convert_format_device_all_u16_values(transparent, eight_bit):
     v = np.arange(65536, dtype=np.uint16)
     img = np.stack([v, v[::-1], np.roll(v, 7), np.roll(v, 1000)], axis=-1).reshape(256, 256, 4)
     want = np.asarray(jexport.convert_format_device(jnp.asarray(img), transparent, eight_bit))
-    got = texport.to_host(texport.convert_format_device(torch.from_numpy(img), transparent,
-                                                        eight_bit))
+    got = fetch(tc.convert_format_device(torch.from_numpy(img), transparent, eight_bit))
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(texport.convert_format(img, transparent, eight_bit),

@@ -27,7 +27,7 @@ from strange_attractor_tpu_torch import cli
 from strange_attractor_tpu_torch.convert import config_from_reference
 from strange_attractor_tpu_torch.ops import (binning as tb, colorize as tc, emit,
                                              kernel_binning as tk)
-from strange_attractor_tpu_torch.render import _progressive_nonce
+from strange_attractor_tpu_torch.runtime import progressive_nonce
 from test_torch_emit import _jax_steps, _lanes
 from test_torch_exact import CASES, NPIX, _stream
 
@@ -197,7 +197,7 @@ def test_progressive_depth_render_continues_from_the_zbuf_bits():
     lit = lambda s: int((s.zbuf != -1.0).sum())  # noqa: E731
     assert lit(second) > lit(first) and (second.zbuf >= first.zbuf).all()
     bits = first.zbuf.numpy().view(np.uint32).astype(np.uint64).sum() & 0xFFFFFFFF
-    assert _progressive_nonce(first) == int(bits)
+    assert progressive_nonce(first) == int(bits)
 
 
 # ------------------------------------------------------- carry-over, CLI ---

@@ -54,7 +54,7 @@ def test_a_kernel_build_failure_is_a_problem(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "a test card")
     monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (9, 0))
-    monkeypatch.setattr(cuda_lib, "_nvcc", no_nvcc)
+    monkeypatch.setattr(cuda_lib, "nvcc", no_nvcc)
     for name in ("render", "render_seeds"):
         monkeypatch.setattr(port_render, name, refuse)
     assert cli.main(["--device", "cuda:0", "doctor"]) == 1

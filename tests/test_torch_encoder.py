@@ -115,7 +115,7 @@ def test_parallel_deflate_round_trip_at_stripe_edges(lib, n, threads):
     assert zlib.decompress(out) == data
     assert out[:2] == b"\x78\x9c"
     parallel = n >= 2 << 20 and threads > 1
-    assert native.deflate_stripes(n, threads) == (-(-n // STRIPE) if parallel else 1)
+    assert native.deflate_plan(n, threads) == ((threads, -(-n // STRIPE)) if parallel else (1, 1))
     if not parallel:
         assert out == zlib.compress(data, 6)
 

@@ -31,7 +31,7 @@ from strange_attractor_tpu_torch.convert import config_from_reference
 from strange_attractor_tpu_torch.models import attractors as ta
 from strange_attractor_tpu_torch.models.transforms import sqrt_ieee
 from strange_attractor_tpu_torch.ops import emit
-from strange_attractor_tpu_torch.render import _auto_frames_per_batch, frame_generator
+from strange_attractor_tpu_torch.render import auto_frames_per_batch, frame_generator
 
 REPO = Path(__file__).resolve().parents[1]
 B = sat.BinStrategy
@@ -193,8 +193,8 @@ def test_f64_sequence_engines_run_on_cpu(reseed):
     for f in range(2):
         np.testing.assert_array_equal(b[f], c[f])
     big = sat.presets.poisson_saturne(iterations=10**9)
-    assert _auto_frames_per_batch(big.replace(dtype="float64"), B.KERNEL) < \
-        _auto_frames_per_batch(big, B.KERNEL)
+    assert auto_frames_per_batch(big.replace(dtype="float64"), B.KERNEL) < \
+        auto_frames_per_batch(big, B.KERNEL)
 
 
 _WORKER = r'''

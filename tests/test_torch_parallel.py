@@ -30,9 +30,9 @@ import strange_attractor_tpu_torch as sat
 from strange_attractor_tpu_torch import cli
 from strange_attractor_tpu_torch.convert import config_from_reference, state_to_numpy
 from strange_attractor_tpu_torch.parallel import mesh
-from strange_attractor_tpu_torch.render import (_deliver, _host_frames, _progressive_nonce,
-                                                _state_to_planes, frame_generator,
-                                                seeds_and_key)
+from strange_attractor_tpu_torch.deliver import deliver_batch, host_frames
+from strange_attractor_tpu_torch.render import frame_generator, seeds_and_key
+from strange_attractor_tpu_torch.runtime import progressive_nonce, state_to_planes
 
 CPU = torch.device("cpu")
 NPIX = 6 * 40
@@ -195,7 +195,7 @@ def test_render_sharded_equals_merge_of_shard_renders(strategy, depth, k):
     got = mesh.render_sharded(cfg, [CPU] * k)
     shards = _shard_renders(cfg, k)
     want = mesh.planes_to_state(
-        mesh.merge_collective([_state_to_planes(s) for s in shards], strategy),
+        mesh.merge_collective([state_to_planes(s) for s in shards], strategy),
         strategy, (27, 48))
     _assert_states_equal(got, want)
     _assert_states_equal(got, sat.merge_all(shards))
@@ -261,10 +261,10 @@ def test_resume_equals_merge_of_state_and_fresh():
     partials = []
     resumed = mesh.render_sharded(cfg, [CPU] * 2, state=first,
                                   on_progress=lambda d, t, s: partials.append(s))
-    base = mesh._shard_base(cfg, None, _progressive_nonce(first))
+    base = mesh._shard_base(cfg, None, progressive_nonce(first))
     shards = _shard_renders(cfg, 2, base)
     fresh = mesh.planes_to_state(mesh.merge_collective(
-        [_state_to_planes(s) for s in shards], cfg.bin_strategy), cfg.bin_strategy, (27, 48))
+        [state_to_planes(s) for s in shards], cfg.bin_strategy), cfg.bin_strategy, (27, 48))
     _assert_states_equal(resumed, sat.merge(first, fresh))
     _assert_states_equal(partials[-1], resumed)
     assert int(resumed.count.sum()) > int(first.count.sum())
@@ -312,8 +312,8 @@ def test_render_devices_defaults_to_the_card():
 
 
 def _delivered(cfg, states, transparent=False, eight_bit=True) -> np.ndarray:
-    out = _host_frames(cfg, len(states), transparent, eight_bit)
-    _deliver(cfg, states, out, transparent, eight_bit)
+    out = host_frames(cfg, len(states), transparent, eight_bit)
+    deliver_batch(cfg, states, out, transparent, eight_bit)
     return out
 
 
@@ -432,7 +432,8 @@ def test_cli_frame_on_two_devices(tmp_path, two_cpus, capsys):
     """The frame is the sharded render's, the checkpoint its planes, and a
     resumed run merges a fresh sharded render into them; a preview is
     written from the merged partial."""
-    from strange_attractor_tpu_torch.utils.export import convert_format_device, to_host
+    from strange_attractor_tpu_torch.deliver import fetch
+    from strange_attractor_tpu_torch.ops.colorize import convert_format_device
 
     assert cli.main([*SMALL, "-o", str(tmp_path / "a"), "--save-state",
                      str(tmp_path / "a.npz"), "--preview-every", "1e-9"]) == 0
@@ -443,7 +444,7 @@ def test_cli_frame_on_two_devices(tmp_path, two_cpus, capsys):
         np.testing.assert_array_equal(saved[name], plane)
     from strange_attractor_tpu_torch.utils.export import png_bytes
 
-    image = to_host(convert_format_device(sat.colorize(cfg, state), False, True))
+    image = fetch(convert_format_device(sat.colorize(cfg, state), False, True))
     assert (tmp_path / "a.png").read_bytes() == png_bytes(image)
     assert (tmp_path / "a-preview.png").exists()
     assert cli.main([*SMALL, "-o", str(tmp_path / "b"), "--load-state",

@@ -10,9 +10,9 @@ JAX package's own ``_png_geometry`` makes. (The kernel's own source runs on
 the CPU in ``test_torch_png_filter_emulation.py``, and on the card in
 chip_smoke.py.)
 
-Then the record of a delivered image's device copy (``utils.export``), with
-a CPU tensor standing in for the card's, registered through
-``_record_device_copy``: a record is used by one PNG and then gone, and a
+Then the record of a delivered image's device copy (``deliver``), with a
+CPU tensor standing in for the card's, registered through
+``deliver.record_device_copy``: a record is used by one PNG and then gone, and a
 PAM or BMP write drops it; it dies with the array that owns the memory, not
 with a view that was handed over; past the budget of device bytes the
 oldest records go first, a batch's storage counted once; an array made
@@ -31,7 +31,7 @@ import torch
 
 from strange_attractor_tpu.utils import export as jexport
 from strange_attractor_tpu_torch.ops import png_filter as pf
-from strange_attractor_tpu_torch.render import _fetch
+from strange_attractor_tpu_torch import deliver
 from strange_attractor_tpu_torch.utils import export, profiling
 from test_torch_encoder import _image, _rows
 
@@ -103,12 +103,12 @@ def spans_cleared():
 
 def _delivered(h=9, w=11, ch=3, dtype=np.uint8, seed=0):
     """A host array and its stand-in device copy, recorded as
-    ``render._fetch`` records a card's image."""
+    ``deliver.fetch`` records a card's image."""
     img = _image(np.random.default_rng(seed), h, w, dtype, ch)
     device = torch.from_numpy(img.copy())
     host = device.numpy().copy()
     host.flags.writeable = False
-    export._record_device_copy(host, device)
+    deliver.record_device_copy(host, device)
     return host, device
 
 
@@ -135,7 +135,7 @@ def test_a_record_is_used_by_one_png(spans_cleared, dtype, ch):
     again, card = _png(host)
     assert card == 0
     assert first == again == _host_png(host)
-    assert export._take_device_copy(host) is None
+    assert deliver.take_device_copy(host) is None
 
 
 def test_a_record_dies_with_the_array_that_owns_the_memory():
@@ -145,25 +145,25 @@ def test_a_record_dies_with_the_array_that_owns_the_memory():
     batch = torch.arange(owner.size, dtype=torch.int64).to(torch.uint8).reshape(owner.shape)
     part = owner[1:3]
     part[:] = batch[1:3].numpy()
-    keys = [export._layout(part[f]) for f in range(2)]
+    keys = [deliver._layout(part[f]) for f in range(2)]
     for f in range(2):
-        export._record_device_copy(part[f], batch[1 + f])
+        deliver.record_device_copy(part[f], batch[1 + f])
     del part
     gc.collect()
-    assert all(k in export._DEVICE_COPIES for k in keys)
+    assert all(k in deliver._DEVICE_COPIES for k in keys)
     owner.flags.writeable = False
     frame = owner[2]
-    assert export._layout(frame) == keys[1]
+    assert deliver._layout(frame) == keys[1]
     del owner, frame
     gc.collect()
-    assert not any(k in export._DEVICE_COPIES for k in keys)
+    assert not any(k in deliver._DEVICE_COPIES for k in keys)
 
 
 def test_a_frame_of_a_read_only_sequence_is_filtered_from_its_copy(spans_cleared):
     owner = _image(np.random.default_rng(3), 12, 10, np.uint8, 4)[None].repeat(3, axis=0)
     batch = torch.from_numpy(owner.copy())
     for f in range(3):
-        export._record_device_copy(owner[f], batch[f])
+        deliver.record_device_copy(owner[f], batch[f])
     owner.flags.writeable = False
     got = [_png(owner[f]) for f in range(3)]
     assert [card for _, card in got] == [1, 1, 1]
@@ -192,7 +192,7 @@ def test_what_is_not_the_delivered_array_takes_the_host_filter(spans_cleared, ho
                                                    kw.get("eight_bit", False)))
     if how == "writable-again":
         host.flags.writeable = False
-        assert export._take_device_copy(host) is None  # dropped at its first look
+        assert deliver.take_device_copy(host) is None  # dropped at its first look
 
 
 def test_each_record_is_taken_once_under_many_threads():
@@ -205,20 +205,20 @@ def test_each_record_is_taken_once_under_many_threads():
     owners = [np.zeros((frames, 2, 3, 3), np.uint8) for _ in range(2)]
     batch = torch.zeros(owners[0].shape, dtype=torch.uint8)
     for f in range(frames):
-        export._record_device_copy(owners[0][f], batch[f])
+        deliver.record_device_copy(owners[0][f], batch[f])
     for owner in owners:
         owner.flags.writeable = False
 
     def record_next():
         for f in range(frames):
-            export._record_device_copy(owners[1][f], batch[f])
+            deliver.record_device_copy(owners[1][f], batch[f])
 
     def take(t):
         got = 0
         for _ in range(3):
             for owner in owners:
                 for f in range(t % 2, frames, 1 + t % 2):
-                    got += export._take_device_copy(owner[f]) is not None
+                    got += deliver.take_device_copy(owner[f]) is not None
         return got
 
     old = sys.getswitchinterval()
@@ -231,25 +231,25 @@ def test_each_record_is_taken_once_under_many_threads():
             recorder.result(timeout=60)
     finally:
         sys.setswitchinterval(old)
-    left = sum(export._take_device_copy(owner[f]) is not None
+    left = sum(deliver.take_device_copy(owner[f]) is not None
                for owner in owners for f in range(frames))
     assert sum(counts) + left == 2 * frames
 
 
 def test_a_cpu_delivery_is_neither_recorded_nor_read_only():
     image = torch.from_numpy(_image(np.random.default_rng(5), 6, 7, np.uint8, 3))
-    before = len(export._DEVICE_COPIES)
-    out = _fetch(image)
-    assert out.flags.writeable and len(export._DEVICE_COPIES) == before
-    assert export._take_device_copy(out) is None
+    before = len(deliver._DEVICE_COPIES)
+    out = deliver.fetch(image)
+    assert out.flags.writeable and len(deliver._DEVICE_COPIES) == before
+    assert deliver.take_device_copy(out) is None
 
 
 def test_a_copy_of_another_shape_cannot_be_recorded():
     host = np.zeros((4, 5, 3), np.uint8)
     with pytest.raises(ValueError):
-        export._record_device_copy(host, torch.zeros(4, 5, 4, dtype=torch.uint8))
+        deliver.record_device_copy(host, torch.zeros(4, 5, 4, dtype=torch.uint8))
     with pytest.raises(ValueError):
-        export._record_device_copy(host, torch.zeros(4, 5, 3, dtype=torch.uint16))
+        deliver.record_device_copy(host, torch.zeros(4, 5, 3, dtype=torch.uint16))
 
 
 @pytest.mark.parametrize("fmt", ["pam", "bmp"])
@@ -259,7 +259,7 @@ def test_a_pam_or_bmp_write_drops_the_record(tmp_path, fmt):
     path = export.write_image(tmp_path / "frame", host, fmt=fmt, transparent=False,
                               eight_bit=True, announce=False)
     assert path.exists() and pf.png_filter.launches == before
-    assert export._take_device_copy(host) is None
+    assert deliver.take_device_copy(host) is None
 
 
 def test_past_the_budget_the_oldest_records_go_first(spans_cleared, monkeypatch):
@@ -267,32 +267,32 @@ def test_past_the_budget_the_oldest_records_go_first(spans_cleared, monkeypatch)
     against a budget of two batches: the first batch's records go when the
     third's first frame comes, all of them, since a row keeps its whole
     batch; a frame that lost its record takes the host filter."""
-    monkeypatch.setattr(export, "_DEVICE_COPY_BUDGET", 2 * 4 * 60)
+    monkeypatch.setattr(deliver, "DEVICE_BUDGET", 2 * 4 * 60)
     owner = np.stack([_image(np.random.default_rng(f), 4, 5, np.uint8, 3) for f in range(12)])
     batches = [torch.from_numpy(owner[4 * b:4 * b + 4].copy()) for b in range(3)]
-    held = lambda: sum(b for (_, b) in export._HELD.values())  # noqa: E731
+    held = deliver.held_bytes
     for f in range(8):
-        export._record_device_copy(owner[f], batches[f // 4][f % 4])
+        deliver.record_device_copy(owner[f], batches[f // 4][f % 4])
     assert held() == 2 * 4 * 60
-    export._record_device_copy(owner[8], batches[2][0])
+    deliver.record_device_copy(owner[8], batches[2][0])
     assert held() == 2 * 4 * 60
-    keys = [export._layout(owner[f]) for f in range(12)]
-    assert [k in export._DEVICE_COPIES for k in keys[:9]] == [False] * 4 + [True] * 5
+    keys = [deliver._layout(owner[f]) for f in range(12)]
+    assert [k in deliver._DEVICE_COPIES for k in keys[:9]] == [False] * 4 + [True] * 5
     for f in range(9, 12):
-        export._record_device_copy(owner[f], batches[2][f - 8])
+        deliver.record_device_copy(owner[f], batches[2][f - 8])
     owner.flags.writeable = False
     assert _png(owner[0])[1] == 0 and _png(owner[4])[1] == 1
     assert _png(owner[0])[0] == _host_png(owner[0])
     assert _png(owner[11])[0] == _host_png(owner[11])
     for f in range(12):
-        export._take_device_copy(owner[f])
-    assert held() == 0 and not export._HELD
+        deliver.take_device_copy(owner[f])
+    assert held() == 0 and not deliver._HELD
 
 
 def test_one_frame_larger_than_the_budget_is_not_kept(monkeypatch):
-    monkeypatch.setattr(export, "_DEVICE_COPY_BUDGET", 100)
+    monkeypatch.setattr(deliver, "DEVICE_BUDGET", 100)
     host, _ = _delivered(h=9, w=11, ch=3)  # 297 bytes
-    assert export._take_device_copy(host) is None and not export._HELD
+    assert deliver.take_device_copy(host) is None and not deliver._HELD
 
 
 # --------------------------------------------------------------- readers ----

@@ -18,7 +18,7 @@ import torch
 
 import strange_attractor_tpu as jsat
 import strange_attractor_tpu_torch as sat
-from strange_attractor_tpu_torch.render import _draw_base, frame_generator
+from strange_attractor_tpu_torch.render import draw_base, frame_generator
 from strange_attractor_tpu_torch.utils.export import convert_format
 
 ENGINES = ("render_sequence_batched", "render_sequence_shared")
@@ -90,7 +90,7 @@ def test_generator_wins_over_the_seed(name):
     for seed in (9, None):
         np.testing.assert_array_equal(_frames(name, _cfg().replace(seed=seed), _seeded(11)), got)
     assert not np.array_equal(got, _frames(name, _cfg()))
-    base = _draw_base(_seeded(11))
+    base = draw_base(_seeded(11))
     cfg = _cfg()
     # a shared batch's first frame is the per-frame engine's
     for i in ((0, 2) if name == "render_sequence_shared" else (0, 1, 2)):

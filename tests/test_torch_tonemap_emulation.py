@@ -46,7 +46,6 @@ from strange_attractor_tpu_torch.render import colorize, colorize_convert_fetch
 from strange_attractor_tpu_torch.tools import tonemap_variants as tv
 from strange_attractor_tpu_torch.ops import binning as tb, colorize as tc, cuda_lib
 from strange_attractor_tpu_torch.runtime import RenderState
-from strange_attractor_tpu_torch.utils.export import convert_format_device
 from test_torch_tile_emulation import STUB, _as_cxx
 
 GEOMETRY = {"EMU_SMS": 3, "EMU_RESIDENT": 2}
@@ -301,7 +300,7 @@ def test_the_wrapper_runs_the_plain_chain_on_the_cpu_without_launching():
     cfg = _config("gas", "random", "default", True)
     state = _torch_state(_state("packed", "gas", "random", 5))
     before = _launches()
-    want = convert_format_device(tc.colorize_planes(cfg, *tc.state_planes(state)), False, True)
+    want = tc.convert_format_device(tc.colorize_planes(cfg, *tc.state_planes(state)), False, True)
     out = torch.empty((*SHAPE, 3), dtype=torch.uint8)
     got = tc.tonemap(cfg, state, transparent=False, eight_bit=True, out=out)
     assert got is out and torch.equal(out, want)
