@@ -225,6 +225,15 @@ all passed):
     are the host path's; then kernel F's ms against its
     bound and its plain twin's, the card path's whole ms (launch, kernel and
     the copy into pinned memory) and the host's native filter's, by layout.
+34. a sequence's host array in page-locked memory: three 120-frame 1080p
+    8-bit shared rotations at 10^7, 60 frames a batch, back to back, each
+    copied by DMA into page-locked memory (every ``deliver.copy`` span
+    ``pinned`` 1, the array read-only, every frame recorded and frame 7's
+    record its own copy) and bit-identical to the same rotation copied
+    into pageable pages (``deliver._page_locked`` refused); each batch's
+    copy in GB/s both ways, the page-locked allocations each rotation made
+    (``torch.cuda.host_memory_stats`` where this torch has it: none after
+    the first) and the page-locked bytes held at the end.
 
 The line before the card's is the ``kernels`` JSON: per kernel its mean
 time (``ms``), its twin's (``plain_ms``), its bound from this run's shapes
@@ -243,7 +252,8 @@ and launches, ranks' walls and all_reduce times and sharded sequence rates,
 phases 26-29's first frames, precompile seconds, doctor's figures, the
 profiled frame and the 4K frame, phase 30's parity metrics and phase 31's
 certification seconds and chunk times, phase 32's images compared and
-times, and each phase's seconds. The kernel A
+times, phase 34's copy speeds, allocations and page-locked bytes held,
+and each phase's seconds. The kernel A
 and bin_packed rows carry the 4K frame's launches (``launches_4k_1e9``);
 the ``tonemap`` row counts kernel T's two wrappers' launches in phase 4's
 first frame, and carries the other modes and the 4K canvas of phase 32;
@@ -2205,7 +2215,7 @@ def phase_sequence_sharded(sat, dev, card: str) -> dict:
                                       frame_generator(cfg, i if orbit == "per-frame"
                                                       else i - i % 4))
                   for i in range(len(angles))]
-        want = host_frames(cfg, len(angles), False, True)
+        want = host_frames(cfg, len(angles), False, True, dev)
         deliver_batch(cfg, states, want, False, True)
         if not np.array_equal(frames, want):
             raise AssertionError(f"[25] {orbit}: frames differ from their composition")
@@ -3158,6 +3168,105 @@ def _tonemap_row(s: dict, t: dict) -> dict:
             "images_compared": hd["compared"] + uhd["compared"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: a sequence's host array in page-locked memory
+
+
+def _host_allocs() -> Optional[dict]:
+    """torch's caching host allocator's counters where this torch has
+    ``torch.cuda.host_memory_stats``, else None; they hold no key before
+    its first block (``num_host_alloc``: cudaHostAlloc calls,
+    ``allocated_bytes.current``: the bytes they hold, in torch 2.11)."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    return dict(stats()) if stats is not None else None
+
+
+def _rotation_copies(sat, cfg, angles, dev) -> tuple:
+    """(frames, [(bytes, pinned, seconds)] of its ``deliver.copy`` spans,
+    wall s) of one 120-frame shared rotation, 60 frames a batch."""
+    from strange_attractor_tpu_torch.utils import profiling
+
+    profiling.clear_spans()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        t0 = time.perf_counter()
+        frames = sat.render_sequence_shared(cfg, angles, frames_per_batch=60, transparent=False,
+                                            eight_bit=True, device=dev)
+        wall = time.perf_counter() - t0
+    copies = [(r.attrs["bytes"], r.attrs["pinned"], (r.end_ns - r.start_ns) * 1e-9)
+              for r in profiling.spans() if r.name == "deliver.copy"]
+    profiling.clear_spans()
+    return frames, copies, wall
+
+
+def phase_pinned_frames(sat, dev, card: str) -> dict:
+    """Phase 34 in the module docstring: three rotations into page-locked
+    memory, each against the same rotation copied into pageable pages."""
+    from strange_attractor_tpu_torch import deliver
+    from strange_attractor_tpu_torch.utils.sequencing import angle_iter
+
+    cfg = _flagship(sat, 10_000_000).replace(silent=True)
+    angles = list(angle_iter(0.0, 360.0, 3.0))
+    out = {"pinned_gbps": [], "pageable_gbps": [], "allocs": [], "walls": [], "reused": []}
+    last_ptr = None
+
+    def refuse(shape, dtype):
+        raise RuntimeError("page-locking refused for the pageable comparison")
+
+    for seed in (1, 2, 3):
+        before = _host_allocs()
+        frames, copies, wall = _rotation_copies(sat, cfg.replace(seed=seed), angles, dev)
+        after = _host_allocs()
+        allocs = None if after is None else \
+            after.get("num_host_alloc", 0) - before.get("num_host_alloc", 0)
+        if [c[1] for c in copies] != [1, 1]:
+            raise AssertionError(f"[34] seed {seed}: copies {copies} did not land page-locked")
+        if frames.flags.writeable or frames.shape != (len(angles), H, W, 3):
+            raise AssertionError(f"[34] seed {seed}: frames {frames.shape}, writable "
+                                 f"{frames.flags.writeable}")
+        recorded = sum(deliver._layout(frames[f]) in deliver._DEVICE_COPIES
+                       for f in range(len(frames)))
+        if recorded != len(frames):
+            raise AssertionError(f"[34] seed {seed}: {recorded} of {len(frames)} frames recorded")
+        copy = deliver.take_device_copy(frames[7])
+        if copy is None or not np.array_equal(copy.cpu().numpy(), frames[7]):
+            raise AssertionError(f"[34] seed {seed}: frame 7's record is not its own copy")
+        ptr = frames.__array_interface__["data"][0]
+        real = deliver._page_locked
+        deliver._page_locked = refuse
+        try:
+            pageable, pageable_copies, pageable_wall = _rotation_copies(
+                sat, cfg.replace(seed=seed), angles, dev)
+        finally:
+            deliver._page_locked = real
+        if [c[1] for c in pageable_copies] != [0, 0] or not np.array_equal(frames, pageable):
+            raise AssertionError(f"[34] seed {seed}: the pageable copy differs or was pinned "
+                                 f"({pageable_copies})")
+        gbps = [b / t / 1e9 for b, _, t in copies]
+        pageable_gbps = [b / t / 1e9 for b, _, t in pageable_copies]
+        print(f"[34] rotation seed {seed}: 120 frames bit-identical to the pageable copy; copy "
+              f"GB/s page-locked " + ", ".join(f"{g:.2f}" for g in gbps) + " against pageable "
+              + ", ".join(f"{g:.2f}" for g in pageable_gbps) + f"; wall {wall:.4f} s against "
+              f"{pageable_wall:.4f} s; page-locked allocations {allocs}; block "
+              f"{'reused' if ptr == last_ptr else 'new'} on {card}")
+        out["pinned_gbps"].append(gbps)
+        out["pageable_gbps"].append(pageable_gbps)
+        out["allocs"].append(allocs)
+        out["walls"].append([wall, pageable_wall])
+        out["reused"].append(ptr == last_ptr)
+        last_ptr = ptr
+        del frames, pageable, copy
+    if any(a for a in out["allocs"][1:]):
+        raise AssertionError(f"[34] page-locked allocations after the first rotation: "
+                             f"{out['allocs']}")
+    stats = _host_allocs()
+    held = None if stats is None else stats.get("allocated_bytes.current", 0)
+    out["held_bytes"], out["host_memory_stats"] = held, stats
+    print(f"[34] page-locked bytes held at the end: {held}; host_memory_stats "
+          + ("not in this torch" if stats is None else json.dumps(stats)))
+    return out
+
+
 def _png_filter_row(p: dict) -> dict:
     """Kernel F's ``kernels`` row: the hero frame's 8-bit RGB filter (the
     stills' layout) with its bound and twin, the other layouts and the
@@ -3225,6 +3334,7 @@ def main() -> int:
         certified = lap("31", phase_certify(card))
         tonemapped = lap("32", phase_tonemap(sat, dev, card))
         png_filtered = lap("33", phase_png_filter(sat, dev, Path(tmp), card))
+        pinned = lap("34", phase_pinned_frames(sat, dev, card))
     renders = lap("13", phase_renders(sat, dev, card))
     rk4_renders = lap("16", phase_rk4_renders(sat, dev, card))
     axes_renders = lap("19", phase_axes_renders(sat, dev, card))
@@ -3247,7 +3357,9 @@ def main() -> int:
                       "merge_ms": merge_ms, "sharded": sharded, "ranks": ranks,
                       "sequence_sharded": seq_sharded, "precompile": precompiled,
                       "doctor": doctor, "profile": profiled, "uhd": uhd, "parity": parity,
-                      "certify": certified, "tonemap": tonemapped}))
+                      "certify": certified, "tonemap": tonemapped,
+                      "pinned_frames": {k: v for k, v in pinned.items()
+                                        if k != "host_memory_stats"}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,13 @@ its device (:func:`ops.colorize.tonemap`, kernel T on a card), then one
 host copy (:func:`colorize_convert_fetch`, :func:`fetch`). A sequence's
 batch tone-maps each frame into its row of one device tensor and copies the
 batch once, straight into its slice of the sequence's host array
-(:func:`host_frames`, :func:`deliver_batch`, :func:`sealed`). :func:`fetch`
+(:func:`host_frames`, :func:`deliver_batch`, :func:`sealed`). From a card
+that array is page-locked memory from torch's caching host allocator, so
+the copy lands by DMA, and the block goes back to the cache when the
+array dies: the next sequence of its size reuses it and pins nothing new.
+The process keeps the most page-locked bytes it ever held at once, each
+block a power of two (1 GiB for a 746 MB 1080p 8-bit rotation). Where
+page-locking fails the sequence takes pageable memory. :func:`fetch`
 is the one device-to-host copy of a delivered image: every path that makes
 an image from a state ends in it or in :func:`deliver_batch`.
 
@@ -32,9 +38,10 @@ of canvases may take (:func:`render.auto_frames_per_batch`).
 
 Spans (:func:`utils.profiling.span`, recorded under a profiler only):
 ``deliver.tonemap`` (kernel T's launches, or the plain chain; ``frames``,
-``render`` the render kind), ``deliver.copy`` (the host copy; ``bytes``)
-and, for a PNG filtered on the card, ``png.filter`` (``bytes_in``,
-``bytes_out``, ``native`` 0, ``card`` 1).
+``render`` the render kind), ``deliver.copy`` (the host copy; ``bytes``,
+and in a sequence's ``pinned``, 1 where the batch landed in page-locked
+memory) and, for a PNG filtered on the card, ``png.filter``
+(``bytes_in``, ``bytes_out``, ``native`` 0, ``card`` 1).
 """
 
 from __future__ import annotations
@@ -92,11 +99,36 @@ def fetch(image: torch.Tensor) -> np.ndarray:
     return sealed(out, image.device)
 
 
-def host_frames(config: Config, nframes: int, transparent: bool, eight_bit: bool) -> np.ndarray:
+def _card(device: torch.device) -> bool:
+    """Whether ``device`` is a card: a sequence delivered from it lands in
+    page-locked memory, is recorded frame by frame and is read-only."""
+    return device.type == "cuda"
+
+
+def _page_locked(shape: tuple, dtype: torch.dtype) -> np.ndarray:
+    """An uninitialised host array in page-locked memory from torch's
+    caching host allocator; the array owns the block (its ``base`` is the
+    tensor), which goes back to the cache when the array dies."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True).numpy()
+
+
+def _is_page_locked(arr: np.ndarray) -> bool:
+    """Whether the card's driver sees ``arr``'s memory as page-locked."""
+    return torch.from_numpy(arr).is_pinned()
+
+
+def host_frames(config: Config, nframes: int, transparent: bool, eight_bit: bool,
+                device: torch.device) -> np.ndarray:
     """The host array a sequence delivers into: (F, H, W, 4 or 3) uint16, or
-    uint8 for the 8-bit conversion."""
-    return np.empty((nframes, config.height, config.width, 4 if transparent else 3),
-                    np.uint8 if eight_bit else np.uint16)
+    uint8 for the 8-bit conversion. For a card it is page-locked (pageable
+    where page-locking fails); for the CPU a plain numpy array."""
+    shape = (nframes, config.height, config.width, 4 if transparent else 3)
+    if _card(device):
+        try:
+            return _page_locked(shape, torch.uint8 if eight_bit else torch.uint16)
+        except RuntimeError:
+            pass  # out of page-locked memory: this sequence copies into pageable pages
+    return np.empty(shape, np.uint8 if eight_bit else np.uint16)
 
 
 def deliver_batch(config: Config, states: Iterable[RenderState], out: np.ndarray,
@@ -107,9 +139,10 @@ def deliver_batch(config: Config, states: Iterable[RenderState], out: np.ndarray
     array): a host array per batch and a concatenation would cost two more
     host copies of every frame. ``states`` may render each frame as it is
     drawn (:func:`render.render_sequence_batched`): those renders are then
-    child spans of ``deliver.tonemap``. On a card each frame of ``out`` is
-    recorded against its row of the batch tensor, which nothing writes
-    again; the engines then make the sequence's array read-only
+    child spans of ``deliver.tonemap``. On a card the copy is one DMA into
+    ``out`` where :func:`host_frames` page-locked it, and each frame of
+    ``out`` is recorded against its row of the batch tensor, which nothing
+    writes again; the engines then make the sequence's array read-only
     (:func:`sealed`)."""
     batch = None
     with span("deliver.tonemap", frames=len(out)) as sp:
@@ -120,9 +153,14 @@ def deliver_batch(config: Config, states: Iterable[RenderState], out: np.ndarray
                 batch = torch.empty(out.shape, dtype=torch.uint8 if eight_bit else torch.uint16,
                                     device=state.device)
             tonemap(config, state, transparent=transparent, eight_bit=eight_bit, out=batch[f])
-    with span("deliver.copy", bytes=out.nbytes):
-        torch.from_numpy(out).copy_(batch)
-    if batch.device.type == "cuda":
+    card = _card(batch.device)
+    with span("deliver.copy", bytes=out.nbytes) as sp:
+        torch.from_numpy(out).copy_(batch, non_blocking=True)
+        if batch.is_cuda:
+            torch.cuda.current_stream(batch.device).synchronize()
+        if sp:
+            sp.set(pinned=int(card and _is_page_locked(out)))
+    if card:
         for f in range(len(out)):
             record_device_copy(out[f], batch[f])
 
@@ -130,7 +168,7 @@ def deliver_batch(config: Config, states: Iterable[RenderState], out: np.ndarray
 def sealed(out: np.ndarray, device: torch.device) -> np.ndarray:
     """A host array as its delivery returns it: read-only when it was
     delivered from a card, whose frames were recorded."""
-    if device.type == "cuda":
+    if _card(device):
         out.flags.writeable = False
     return out
 
@@ -153,7 +191,9 @@ def _layout(arr: np.ndarray) -> tuple:
 
 def _owner(arr: np.ndarray) -> np.ndarray:
     """The array at the root of ``arr``'s views: the one whose death frees
-    (or lets go of) the memory."""
+    (or lets go of) the memory. A page-locked sequence's root is the array
+    :func:`_page_locked` made, whose ``base`` is the tensor that holds the
+    block."""
     while isinstance(arr.base, np.ndarray):
         arr = arr.base
     return arr

@@ -370,7 +370,7 @@ def render_sequence_sharded(config: Config, angles_deg: Sequence[float], devices
         raise ValueError(f"orbit must be 'per-frame' or 'shared', got {orbit!r}")
     base = sequence_base(config, generator)
     rad = np.radians(angles)
-    out = host_frames(config, nang, transparent, eight_bit)
+    out = host_frames(config, nang, transparent, eight_bit, devices[0])
     per_row = group_len // frame_axis
     for start in range(0, nang, group_len):
         slices = [(lo, min(lo + per_row, nang)) for lo in

@@ -557,9 +557,9 @@ def render_sequence_batched(config: Config, angles_deg,
     :func:`render_sequence`. ``iterations < 1`` gives blank frames.
     """
     angles, per_batch, device = _sequence_setup(config, angles_deg, frames_per_batch, device)
-    out = host_frames(config, len(angles), transparent, eight_bit)
+    out = host_frames(config, len(angles), transparent, eight_bit, device)
     if config.iterations < 1:
-        blank = host_frames(config, 1, transparent, eight_bit)
+        blank = host_frames(config, 1, transparent, eight_bit, device)
         deliver_batch(config, [RenderState.create(config, device=device)], blank, transparent,
                       eight_bit)
         out[:] = blank
@@ -641,7 +641,7 @@ def render_sequence_shared(config: Config, angles_deg,
     lanes, _, nchunks = plan_schedule(config)
     base = sequence_base(config, generator)
     rad = np.radians(angles)
-    out = host_frames(config, len(angles), transparent, eight_bit)
+    out = host_frames(config, len(angles), transparent, eight_bit, device)
     for lo in range(0, len(angles), per_batch):
         hi = min(lo + per_batch, len(angles))
         with span("engine.batch", frames=hi - lo, chunks=nchunks):

@@ -33,7 +33,8 @@ a thread, on the trace's clock. The spans, by layer:
 - delivery (``deliver.py``): ``deliver.tonemap`` (kernel T's launches,
   or the plain chain; ``frames``, ``render`` the render kind, ``gas`` or
   ``depth``), ``deliver.copy`` (the device-to-host copy, ``fetch`` and
-  ``deliver_batch``'s; ``bytes``);
+  ``deliver_batch``'s; ``bytes``, and in ``deliver_batch``'s ``pinned``,
+  1 where the batch landed in page-locked memory);
 - encoder (``utils/export.py``): ``image.write`` (``write_image``;
   ``fmt``, ``bytes`` of the file), ``png.filter`` (``bytes_in``,
   ``bytes_out``, ``native`` 0 or 1, ``card`` 1 where kernel F filtered a

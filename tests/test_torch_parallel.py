@@ -312,7 +312,7 @@ def test_render_devices_defaults_to_the_card():
 
 
 def _delivered(cfg, states, transparent=False, eight_bit=True) -> np.ndarray:
-    out = host_frames(cfg, len(states), transparent, eight_bit)
+    out = host_frames(cfg, len(states), transparent, eight_bit, states[0].device)
     deliver_batch(cfg, states, out, transparent, eight_bit)
     return out
 
