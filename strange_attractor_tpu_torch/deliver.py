@@ -38,7 +38,8 @@ of canvases may take (:func:`render.auto_frames_per_batch`).
 
 Spans (:func:`utils.profiling.span`, recorded under a profiler only):
 ``deliver.tonemap`` (kernel T's launches, or the plain chain; ``frames``,
-``render`` the render kind), ``deliver.copy`` (the host copy; ``bytes``,
+``render`` the render kind, ``planes`` the state's plane layout: ``packed``,
+``exact`` or ``depth``), ``deliver.copy`` (the host copy; ``bytes``,
 and in a sequence's ``pinned``, 1 where the batch landed in page-locked
 memory) and, for a PNG filtered on the card, ``png.filter``
 (``bytes_in``, ``bytes_out``, ``native`` 0, ``card`` 1).
@@ -79,7 +80,7 @@ def colorize_convert_fetch(config: Config, state: RenderState, *, transparent: b
     read-only (:func:`fetch`)."""
     with span("deliver.tonemap", frames=1) as sp:
         if sp:
-            sp.set(render=config.render.value)
+            sp.set(render=config.render.value, planes=state.strategy.value)
         image = tonemap(config, state, transparent=transparent, eight_bit=eight_bit)
     return fetch(image)
 
@@ -150,6 +151,8 @@ def deliver_batch(config: Config, states: Iterable[RenderState], out: np.ndarray
             sp.set(render=config.render.value)
         for f, state in enumerate(states):
             if batch is None:
+                if sp:
+                    sp.set(planes=state.strategy.value)
                 batch = torch.empty(out.shape, dtype=torch.uint8 if eight_bit else torch.uint16,
                                     device=state.device)
             tonemap(config, state, transparent=transparent, eight_bit=eight_bit, out=batch[f])

@@ -167,7 +167,7 @@ def test_a_frame_records_every_span_with_its_counts(tmp_path, spans_cleared):
     # the plain twins on the CPU count no launch
     assert one["render.chunks"].attrs == {"chunks": nchunks, "launches": 0, "bin": "kernel",
                                           "emit": "packed"}
-    assert one["deliver.tonemap"].attrs == {"frames": 1, "render": "gas"}
+    assert one["deliver.tonemap"].attrs == {"frames": 1, "render": "gas", "planes": "packed"}
     assert one["deliver.copy"].attrs == {"bytes": h * w * 3}
     size = path.stat().st_size
     assert one["image.write"].attrs == {"fmt": "png", "bytes": size}
@@ -199,12 +199,14 @@ def test_a_frame_records_every_span_with_its_counts(tmp_path, spans_cleared):
     (["--depth"], "depth", "depth-kernel", "depth"),
     (["--depth", "--bin-strategy", "depth"], "depth", "depth", "depth"),
     (["--bin-strategy", "exact16-kernel"], "gas", "exact16-kernel", "exact"),
+    (["--bin-strategy", "exact-kernel"], "gas", "exact-kernel", "exact"),
 ])
 def test_the_spans_name_the_render_kind_the_bin_and_the_emission(flags, kind, strategy,
                                                                  emission, spans_cleared):
     """``render.chunks`` names the bin strategy the render ran and kernel
-    A's emission mode, ``deliver.tonemap`` the render kind, so a trace tells
-    a depth frame from a gas one."""
+    A's emission mode, ``deliver.tonemap`` the render kind and the plane
+    layout it tone-maps (the emission's), so a trace tells a depth frame
+    from a gas one and an EXACT tone map from a PACKED one."""
     parser = cli.build_parser()
     args = parser.parse_args(TINY + flags)
     cli._validate(args, parser)
@@ -215,7 +217,8 @@ def test_the_spans_name_the_render_kind_the_bin_and_the_emission(flags, kind, st
     got = _by_name(profiling.spans())
     (chunks,) = got["render.chunks"]
     assert (chunks.attrs["bin"], chunks.attrs["emit"]) == (strategy, emission)
-    assert [t.attrs for t in got["deliver.tonemap"]] == [{"frames": 1, "render": kind}]
+    assert [t.attrs for t in got["deliver.tonemap"]] == [{"frames": 1, "render": kind,
+                                                          "planes": emission}]
 
 
 @pytest.mark.parametrize("h,w,stripes", [(1080, 1920, 24), (540, 960, 1)])
@@ -263,8 +266,9 @@ def test_a_sequence_batch_records_its_engine_spans(engine, chunks_per_batch, spa
         assert len(got["render.launch"]) == 3
         assert all(r.parent in tonemaps for r in got["render.launch"])
     ids = [b.span_id for b in batches]
-    assert [t.attrs for t in got["deliver.tonemap"]] == [{"frames": 2, "render": "gas"},
-                                                         {"frames": 1, "render": "gas"}]
+    assert [t.attrs for t in got["deliver.tonemap"]] == [
+        {"frames": 2, "render": "gas", "planes": "packed"},
+        {"frames": 1, "render": "gas", "planes": "packed"}]
     # a CPU sequence's host array is pageable
     assert [c.attrs for c in got["deliver.copy"]] == [
         {"bytes": 2 * frames[0].nbytes, "pinned": 0}, {"bytes": frames[0].nbytes, "pinned": 0}]
